@@ -1,0 +1,61 @@
+"""spark_rapids_jni_tpu_torch: the PyTorch/CUDA port of
+spark_rapids_jni_tpu for NVIDIA Hopper.
+
+Same columnar layout, module structure and names as the JAX package,
+which stays the reference the port is tested against. The port imports
+neither JAX nor the JAX package. Constructors default to
+``device="cuda"`` and raise when no card is present; ops run on the
+device of their input tensors.
+
+Layer map of this slice:
+  api.RowConversion               JCUDF row round trip (ops/row_conversion)
+  parallel/spark_hash             Spark HashPartitioning placement
+  kernels/murmur3 + csrc/         the hand-written Hopper Murmur3 kernel
+  columnar/                       DType, Column, Table, strings, interop
+"""
+
+from .columnar.dtypes import (
+    DType,
+    BOOL8,
+    INT8,
+    INT16,
+    INT32,
+    INT64,
+    FLOAT32,
+    FLOAT64,
+    STRING,
+    BINARY,
+    DECIMAL32,
+    DECIMAL64,
+    DECIMAL128,
+    TIMESTAMP_MICROS,
+    DATE32,
+)
+from .columnar.column import Column
+from .columnar.table import Table
+from .columnar.interop import table_from_numpy, table_to_numpy
+from . import api, kernels, ops, parallel  # noqa: F401
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Column",
+    "Table",
+    "DType",
+    "BOOL8",
+    "INT8",
+    "INT16",
+    "INT32",
+    "INT64",
+    "FLOAT32",
+    "FLOAT64",
+    "STRING",
+    "BINARY",
+    "DECIMAL32",
+    "DECIMAL64",
+    "DECIMAL128",
+    "TIMESTAMP_MICROS",
+    "DATE32",
+    "table_from_numpy",
+    "table_to_numpy",
+]
