@@ -21,7 +21,16 @@ Phases, each fatal on failure:
      and an independent numpy Murmur3, the round trip exact
   5. two more shapes: the reference's 212-column fixed-width nvbench
      table and bench.py's strings table, both at 1 Mi rows, exact
-  6. one JSON line of kernel numbers, the card line, then the verdict
+  6. card against CPU: a mixed 64 Ki-row batch (ties, NaN, -0.0, nulls,
+     strings, DECIMAL64/128 with overflow rows) through sort, filter,
+     group-by and the decimal operators on the card and on the CPU;
+     the results must be equal
+  7. the second path, TPC-H q1 at SF10 (BASELINE.md config 2): 59,986,052
+     lineitem rows in 4 Mi-row batches on the card through filter ->
+     DECIMAL128 products -> group-by -> sort, every batch and the merge of
+     all batches exactly equal to a host oracle; per-stage times, rows/s,
+     a profile and the peak device memory
+  8. one JSON line of kernel numbers, the card line, then the verdict
 
 Exits non-zero, printing no verdict, without a card or without the port
 beside it. Data is made from fixed seeds.
@@ -164,6 +173,20 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, reps=3):
+    """Median host-clock ms of ``fn`` ending in a device sync, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
 def profile_stage(label, fn, top=6):
     """One run of ``fn`` under torch.profiler: device busy time (union of
     kernel intervals), the device idle share of the window from the
@@ -230,6 +253,379 @@ def murmur3_numpy_int64_pairs(a, b, seed=42):
         u = x.astype(np.int64).view(np.uint64)
         h = fmix(mix(mix(h, u & M), u >> np.uint64(32)), 8)
     return h.astype(np.uint32).view(np.int32)
+
+
+N_MIXED = 1 << 16  # 64 Ki rows
+Q1_BATCH = 1 << 22  # 4 Mi rows, benchmarks/sf10_q1.py's chunk
+SF10_LINEITEM_ROWS = 59_986_052  # TPC-H SF10 lineitem
+Q1_CUTOFF = 10_470  # l_shipdate <= date '1998-09-02', days since epoch
+Q1_RF = np.array([65, 82, 78], np.uint8)  # l_returnflag A R N
+Q1_LS = np.array([79, 70], np.uint8)  # l_linestatus O F
+
+
+def mixed_spec(n, seed=3):
+    """A mixed batch in the interop form: heavy key ties, NaN, -0.0 and
+    infinities, nulls, strings with shared prefixes and empty strings,
+    DECIMAL64 and DECIMAL128 (some near 10^38, so sums, products and
+    quotients overflow, and zero divisors)."""
+    rng = np.random.default_rng(seed)
+
+    def col(dt, data, p_null=0.0, offsets=None):
+        valid = rng.random(n) >= p_null if p_null else None
+        return {"dtype": dt, "data": data, "validity": valid, "offsets": offsets}
+
+    def strings(vocab):
+        s = categorical_strings(rng, vocab, n)
+        return s["data"], s["offsets"]
+
+    def dec128(max_hi, p_small):
+        """int64 [n, 2] limbs of values below max_hi * 2^64 in
+        magnitude, a share of them small, both signs."""
+        lo = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+        hi = rng.integers(0, max_hi, n, dtype=np.uint64)
+        small = rng.random(n) < p_small
+        hi[small] = 0
+        lo[small] %= np.uint64(10**6)
+        neg = rng.random(n) < 0.5
+        lo_n = ~lo + np.uint64(1)
+        hi_n = ~hi + (lo == 0).astype(np.uint64)
+        lo, hi = np.where(neg, lo_n, lo), np.where(neg, hi_n, hi)
+        return np.stack([lo, hi], axis=1).view(np.int64)
+
+    f_key = rng.choice([-0.0, 0.0, 1.5, np.nan, -np.inf, np.inf], n)
+    f_val = rng.normal(size=n) * 1e3
+    f_val[::97] = np.nan
+    f_val[5::131] = np.inf
+    f_val[7::89] = -0.0
+    b = dec128(10**11, 0.3)
+    b[::50] = 0  # zero divisors
+    i18 = rng.integers(-(10**18) + 1, 10**18, n)
+    i19 = rng.integers(-(2**63) + 1, 2**63 - 1, n)
+    s_data, s_offs = strings(["", "a", "ab", "abc", "b", "ba", "zzzzzzzz", "zzzzzzzzz", "é"])
+    return [
+        col(("int", 32, None, None), rng.integers(0, 8, n).astype(np.int32), 0.1),
+        col(("string", 0, None, None), s_data, 0.1, s_offs),
+        col(("float", 64, None, None), f_key, 0.1),
+        col(("int", 64, None, None), rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64), 0.2),
+        col(("float", 64, None, None), f_val, 0.2),
+        col(("decimal", 64, 18, 2), rng.integers(-(10**17), 10**17, n)),
+        col(("decimal", 128, 38, 2), dec128(5_421_010_862_427_522_170, 0.3), 0.1),
+        col(("decimal", 128, 38, 3), b),
+        col(("decimal", 128, 18, 2), np.stack([i18, i18 >> 63], axis=1)),
+        col(("decimal", 128, 19, 0), np.stack([i19, i19 >> 63], axis=1), 0.05),
+        col(("date", 32, None, None), rng.integers(10_000, 10_004, n).astype(np.int32)),
+    ]
+
+
+def mixed_ops(t, pred):
+    """Every operator of the q1 slice over the mixed batch: name ->
+    result Table."""
+    from spark_rapids_jni_tpu_torch import INT32, Column, Table
+    from spark_rapids_jni_tpu_torch.api import Aggregation, DecimalUtils, Filter, SortOrder
+
+    Agg, Key = Aggregation.Agg, SortOrder.SortKey
+    aggs = [Agg("count"), Agg("count", 3)]
+    for c, ops in ((3, "sum mean min max"), (4, "sum mean min max"), (5, "sum mean min"),
+                   (6, "sum mean max"), (1, "min max")):
+        aggs += [Agg(op, c) for op in ops.split()]
+    c = t.columns
+    perm = SortOrder.order(t, [Key(1), Key(2, False), Key(0, True, False), Key(6, False)])
+    return {
+        "sort_order": Table([Column(INT32, perm)]),
+        "sort_table": SortOrder.sort(t, [Key(10), Key(3, False), Key(4)]),
+        "filter_table": Filter.apply(t, pred),
+        "group_by int,string": Aggregation.groupBy(t, [0, 1], aggs),
+        "group_by float": Aggregation.groupBy(t, [2], aggs),
+        "multiply128 i128": DecimalUtils.multiply128(c[8], c[9], 2),
+        "multiply128 noshift": DecimalUtils.multiply128(c[6], c[7], 5),
+        "multiply128 scales_any": DecimalUtils.multiply128(c[6], c[7], 4),
+        "add128": DecimalUtils.add128(c[6], c[7], 3),
+        "divide128": DecimalUtils.divide128(c[6], c[7], 6),
+    }
+
+
+def same_array(a, b) -> bool:
+    """Equal shape, dtype and values; floats compare NaN with NaN (the
+    NaN payload may differ between devices) and -0.0 apart from 0.0."""
+    if a is None or b is None:
+        return a is None and b is None
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.kind == "f":
+        nan = np.isnan(a)
+        return bool(np.array_equal(a, b, equal_nan=True)
+                    and np.array_equal(np.signbit(a) & ~nan, np.signbit(b) & ~nan))
+    return a.tobytes() == b.tobytes()
+
+
+def card_vs_cpu(n):
+    """The port's q1 operators on the card and on the CPU over one mixed
+    batch: every column's data, validity and offsets must be equal."""
+    from spark_rapids_jni_tpu_torch import BOOL8, Column
+    from spark_rapids_jni_tpu_torch.columnar.interop import table_from_numpy, table_to_numpy
+
+    spec = mixed_spec(n)
+    rng = np.random.default_rng(4)
+    keep, keep_valid = rng.random(n) < 0.4, rng.random(n) > 0.2
+    results = {}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        t = table_from_numpy(spec, device=dev)
+        pred = Column.from_numpy(keep.astype(np.int8), BOOL8, keep_valid, device=dev)
+        results[dev] = {k: table_to_numpy(v) for k, v in mixed_ops(t, pred).items()}
+    for name, want in results["cpu"].items():
+        got = results["cuda"][name]
+        if len(got) != len(want):
+            raise AssertionError(f"card vs cpu [{name}]: column count")
+        for i, (g, w) in enumerate(zip(got, want)):
+            for key in ("data", "validity", "offsets"):
+                if not same_array(g[key], w[key]):
+                    raise AssertionError(f"card vs cpu [{name}]: column {i} {key} differs")
+    rows = {k: len(v[0]["data"]) for k, v in results["cpu"].items()}
+    print(f"card vs cpu: {len(rows)} operators exact at {n} rows in "
+          f"{time.perf_counter() - t0:.1f} s; output rows {json.dumps(rows)}", flush=True)
+
+    # the decimal operators' times on the card; divide128 runs the
+    # 256-step long division over every row
+    from spark_rapids_jni_tpu_torch.api import DecimalUtils
+
+    for rows_n in (n, Q1_BATCH):
+        spec_n = spec if rows_n == n else mixed_spec(rows_n, seed=5)
+        c = table_from_numpy(spec_n[6:10], device="cuda").columns
+        ms = {
+            "multiply128 i128": host_ms(lambda: DecimalUtils.multiply128(c[2], c[3], 2)),
+            "multiply128 noshift": host_ms(lambda: DecimalUtils.multiply128(c[0], c[1], 5)),
+            "multiply128 scales_any": host_ms(lambda: DecimalUtils.multiply128(c[0], c[1], 4)),
+            "add128": host_ms(lambda: DecimalUtils.add128(c[0], c[1], 3)),
+            "divide128": host_ms(lambda: DecimalUtils.divide128(c[0], c[1], 6)),
+        }
+        print(f"decimal ms at {rows_n} rows (host clock, median of 3): {json.dumps(ms)}",
+              flush=True)
+        del c
+
+
+def q1_batch_arrays(rng, n):
+    """One lineitem batch of benchmarks/sf10_q1.py's draw (:91-107, same
+    order of draws): 1-byte CHAR keys, DECIMAL64(12,2) measures as
+    unscaled int64, DATE32 ship date."""
+    return {
+        "rf": Q1_RF[rng.integers(0, 3, n)],
+        "ls": Q1_LS[rng.integers(0, 2, n)],
+        "qty": rng.integers(100, 5100, n),
+        "price": rng.integers(90_000, 10_500_000, n),
+        "disc": rng.integers(0, 11, n),
+        "tax": rng.integers(0, 9, n),
+        "ship": rng.integers(10_000, 10_500, n).astype(np.int32),
+    }
+
+
+def q1_table(arrays, device):
+    """The batch as a port Table on ``device``; both CHAR(1) key columns
+    share one offsets tensor."""
+    from spark_rapids_jni_tpu_torch import DATE32, DECIMAL64, STRING, Column, Table
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    n = len(arrays["qty"])
+    offs = torch.arange(n + 1, dtype=torch.int32, device=device)
+    dec = DECIMAL64(12, 2)
+    return Table([
+        Column(STRING, put(arrays["rf"]), None, offs),
+        Column(STRING, put(arrays["ls"]), None, offs),
+        *(Column(dec, put(arrays[k])) for k in ("qty", "price", "disc", "tax")),
+        Column(DATE32, put(arrays["ship"])),
+    ])
+
+
+def q1_run(t, tick=None):
+    """TPC-H q1 over one batch through the port's entry points (the
+    chain of tests/test_tpch_q1.py with benchmarks/sf10_q1.py's static
+    types). ``tick(stage)`` is called after each stage. Returns (sorted
+    result Table, bool tensor: did any product overflow)."""
+    from spark_rapids_jni_tpu_torch import DECIMAL128, Column, Table
+    from spark_rapids_jni_tpu_torch.api import Aggregation, DecimalUtils, Filter, SortOrder
+
+    tick = tick or (lambda stage: None)
+
+    def widen(data, precision):
+        # lineitem is DECIMAL(12,2); the 1 - x and 1 + x literals type
+        # as DECIMAL(13,2)
+        return Column(DECIMAL128(precision, 2), torch.stack([data, data >> 63], dim=-1))
+
+    f = Filter.apply(t, t.columns[6].data <= Q1_CUTOFF)
+    tick("filter")
+    qty, price, disc, tax = f.columns[2:6]
+    # (12,2) x (13,2) -> (26,4): the i128 regime
+    m1 = DecimalUtils.multiply128(widen(price.data, 12), widen(100 - disc.data, 13), 4)
+    # (26,4) x (13,2) -> (38,6): the noshift regime
+    m2 = DecimalUtils.multiply128(m1.columns[1], widen(100 + tax.data, 13), 6)
+    overflow = (m1.columns[0].data != 0).any() | (m2.columns[0].data != 0).any()
+    work = Table([f.columns[0], f.columns[1], qty, price, m1.columns[1], m2.columns[1], disc])
+    tick("decimal")
+    Agg = Aggregation.Agg
+    g = Aggregation.groupBy(work, [0, 1], [
+        Agg("sum", 2), Agg("sum", 3), Agg("sum", 4), Agg("sum", 5),
+        Agg("mean", 2), Agg("mean", 3), Agg("mean", 6), Agg("count"),
+    ])
+    tick("group_by")
+    out = SortOrder.sort(g, [SortOrder.SortKey(0), SortOrder.SortKey(1)])
+    tick("sort")
+    return out, overflow
+
+
+def q1_op_counts(t):
+    """torch ops dispatched per q1 stage over one batch, and by one of
+    the decimal avgs' long divisions (``utils.int256.divide_and_round``
+    over 6 group rows, as ``group_by`` calls it)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from spark_rapids_jni_tpu_torch.utils import int256 as u256
+
+    class Counter(TorchDispatchMode):
+        count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.count += 1
+            return func(*args, **(kwargs or {}))
+
+    counts, last = {}, [0]
+    counter = Counter()
+
+    def tick(stage):
+        counts[stage] = counter.count - last[0]
+        last[0] = counter.count
+
+    with counter:
+        q1_run(t, tick)
+    dev = t.columns[0].device
+    num = tuple(torch.full((6,), 10**12, dtype=torch.int64, device=dev) for _ in range(4))
+    cnt = torch.full((6,), 10**6, dtype=torch.int64, device=dev)
+    before = counter.count
+    with counter:
+        u256.divide_and_round(num, (cnt, 0), torch.zeros(6, dtype=torch.bool, device=dev))
+    counts["one avg division"] = counter.count - before
+    return counts
+
+
+def q1_oracle(arrays):
+    """Exact per-group sums of one batch on the host, numpy int64 (a
+    batch of 4 Mi rows of values below 1.14e11 cannot overflow):
+    {(returnflag, linestatus): [sum_qty, sum_price, sum_disc_price,
+    sum_charge, sum_disc, count]} as Python ints."""
+    keep = arrays["ship"] <= Q1_CUTOFF
+    price = arrays["price"]
+    disc_price = price * (100 - arrays["disc"])  # scale 4
+    charge = disc_price * (100 + arrays["tax"])  # scale 6
+    out = {}
+    for rf in Q1_RF:
+        for ls in Q1_LS:
+            sel = keep & (arrays["rf"] == rf) & (arrays["ls"] == ls)
+            if sel.any():
+                sums = [int(x[sel].sum()) for x in (arrays["qty"], price, disc_price, charge,
+                                                    arrays["disc"])]
+                out[(chr(rf), chr(ls))] = sums + [int(sel.sum())]
+    return out
+
+
+def avg_half_up(total: int, count: int) -> int:
+    """Spark's avg(DECIMAL(12,2)) -> DECIMAL(16,6): total * 10^4 / count
+    rounded HALF_UP (away from zero), in exact integers."""
+    q, r = divmod(abs(total) * 10**4, count)
+    q += 2 * r >= count
+    return -q if total < 0 else q
+
+
+def q1_expected_rows(groups):
+    """q1's sorted result rows from exact per-group sums."""
+    rows = []
+    for key in sorted(groups):
+        s_qty, s_price, s_dp, s_ch, s_disc, cnt = groups[key]
+        rows.append([key[0], key[1], s_qty, s_price, s_dp, s_ch, avg_half_up(s_qty, cnt),
+                     avg_half_up(s_price, cnt), avg_half_up(s_disc, cnt), cnt])
+    return rows
+
+
+def q1_rows(out):
+    """Rows of a q1 result table as Python values."""
+    return [list(r) for r in zip(*out.to_pylists())]
+
+
+def q1_sf10(counters, card):
+    """The q1 path at SF10: batches drawn on the host, copied to the
+    card, then timed stage by stage and held against the host oracle
+    per batch and merged."""
+    sizes = [Q1_BATCH] * (SF10_LINEITEM_ROWS // Q1_BATCH)
+    sizes.append(SF10_LINEITEM_ROWS - sum(sizes))
+    rng = np.random.default_rng(42)
+    t0 = time.perf_counter()
+    host = [q1_batch_arrays(rng, n) for n in sizes]
+    gen_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tables = [q1_table(a, "cuda") for a in host]
+    torch.cuda.synchronize()
+    data_bytes = torch.cuda.memory_allocated() - base
+    print(f"q1 data: {len(sizes)} batches, {sum(sizes)} rows, drawn in {gen_s:.1f} s, "
+          f"{data_bytes} bytes on the card ({data_bytes / sum(sizes):.1f} B/row)", flush=True)
+
+    q1_run(tables[0])  # warm-up: first launches of every op, outside the timing
+    torch.cuda.synchronize()
+    for name in counters:
+        counters[name].launches = 0
+    stage_ms = {s: [] for s in ("filter", "decimal", "group_by", "sort")}
+    outs = []
+    total_s = 0.0
+    for t in tables:
+        last = [time.perf_counter()]
+
+        def tick(stage):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stage_ms[stage].append((now - last[0]) * 1e3)
+            last[0] = now
+
+        start = last[0]
+        outs.append(q1_run(t, tick))
+        total_s += last[0] - start
+    launches = {name: c.launches for name, c in counters.items()}
+
+    merged_got, merged_want = {}, {}
+    for i, ((out, overflow), arrays) in enumerate(zip(outs, host)):
+        if bool(overflow):
+            raise AssertionError(f"q1 batch {i}: a decimal product overflowed")
+        want_groups = q1_oracle(arrays)
+        got = q1_rows(out)
+        if got != q1_expected_rows(want_groups):
+            raise AssertionError(f"q1 batch {i}: result differs from the host oracle:\n{got}")
+        for row in got:  # the sums and counts merge; an avg is held per batch
+            acc = merged_got.setdefault((row[0], row[1]), [0] * 5)
+            for j, v in enumerate(row[2:6] + [row[9]]):
+                acc[j] += v
+        for key, vals in want_groups.items():
+            acc = merged_want.setdefault(key, [0] * 6)
+            for j, v in enumerate(vals):
+                acc[j] += v
+    want_merged = {k: v[:4] + [v[5]] for k, v in merged_want.items()}
+    if merged_got != want_merged or len(merged_got) != 6:
+        raise AssertionError(f"q1 merge differs from the host oracle: {merged_got}")
+    final = q1_expected_rows(merged_want)
+
+    med = {s: float(np.median(v)) for s, v in stage_ms.items()}
+    print(f"q1 sf10: {len(sizes)} batches exact against the host oracle, merge exact; "
+          f"kernel launches on the path {json.dumps(launches)}")
+    print(f"q1 sf10 per-stage ms (median over batches): {json.dumps(med)}")
+    print(f"q1 sf10: {sum(sizes)} rows in {total_s * 1e3:.1f} ms, "
+          f"{sum(sizes) / total_s:.4g} rows/s; batch ms min/median/max "
+          f"{min(map(sum, zip(*stage_ms.values()))):.2f}/"
+          f"{float(np.median([sum(x) for x in zip(*stage_ms.values())])):.2f}/"
+          f"{max(map(sum, zip(*stage_ms.values()))):.2f}")
+    print(f"q1 sf10 result (SF10 merged, avg at scale 6): {json.dumps(final)}")
+    print(f"q1 torch ops dispatched per batch: {json.dumps(q1_op_counts(tables[0]))}")
+    profile_stage("q1 batch (4 Mi rows)", lambda: q1_run(tables[0]), top=10)
+    print(f"q1 sf10 peak device memory: {torch.cuda.max_memory_allocated()} bytes "
+          f"(batches resident: {data_bytes}); card: {card}", flush=True)
 
 
 def main() -> int:
@@ -344,21 +740,10 @@ def main() -> int:
     check_round_trip(full, back, "lineitem 4Mi")
     row_bytes = sum(int(r.data.numel()) for r in rows)
 
-    def stage_ms(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        best = []
-        for _ in range(reps):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            best.append((time.perf_counter() - t) * 1e3)
-        return float(np.median(best))
-
     stages = {
-        "partition_ids": stage_ms(lambda: spark_hash.partition_ids(keys, NUM_PARTITIONS)),
-        "convertToRows": stage_ms(lambda: RowConversion.convertToRows(full)),
-        "convertFromRows": stage_ms(lambda: RowConversion.convertFromRows(rows, schema)),
+        "partition_ids": host_ms(lambda: spark_hash.partition_ids(keys, NUM_PARTITIONS), 5),
+        "convertToRows": host_ms(lambda: RowConversion.convertToRows(full), 5),
+        "convertFromRows": host_ms(lambda: RowConversion.convertFromRows(rows, schema), 5),
     }
     for name, ms in stages.items():
         print(f"main path [{name}]: {ms:.3f} ms, {N_MAIN / (ms / 1e3):.4g} rows/s")
@@ -377,13 +762,19 @@ def main() -> int:
         r = RowConversion.convertToRows(table)
         check_round_trip(table, RowConversion.convertFromRows(r, sch), label)
         nbytes = sum(int(x.data.numel()) for x in r)
-        to_ms = stage_ms(lambda: RowConversion.convertToRows(table), reps=3)
-        from_ms = stage_ms(lambda: RowConversion.convertFromRows(r, sch), reps=3)
+        to_ms = host_ms(lambda: RowConversion.convertToRows(table))
+        from_ms = host_ms(lambda: RowConversion.convertFromRows(r, sch))
         print(f"{label}: {len(r)} batch(es), {nbytes} row bytes; convertToRows "
               f"{to_ms:.3f} ms, convertFromRows {from_ms:.3f} ms, exact", flush=True)
         del table, r
 
-    # ---- 6. kernel numbers, card, verdict
+    # ---- 6. card against CPU, exact
+    card_vs_cpu(N_MIXED)
+
+    # ---- 7. the q1 path at SF10, counted
+    q1_sf10({"murmur3_chain": murmur3}, card)
+
+    # ---- 8. kernel numbers, card, verdict
     k = timings["keys"]
     print(json.dumps({"kernels": [{
         "name": "murmur3_chain",

@@ -7,8 +7,11 @@ neither JAX nor the JAX package. Constructors default to
 ``device="cuda"`` and raise when no card is present; ops run on the
 device of their input tensors.
 
-Layer map of this slice:
+Layer map of the ported slices:
   api.RowConversion               JCUDF row round trip (ops/row_conversion)
+  api.DecimalUtils                DECIMAL128 arithmetic (ops/decimal, utils/)
+  api.SortOrder, Aggregation,     ORDER BY, GROUP BY, WHERE (ops/sort,
+    Filter                          ops/aggregate, ops/filter, ops/segmented)
   parallel/spark_hash             Spark HashPartitioning placement
   kernels/murmur3 + csrc/         the hand-written Hopper Murmur3 kernel
   columnar/                       DType, Column, Table, strings, interop
@@ -34,7 +37,8 @@ from .columnar.dtypes import (
 from .columnar.column import Column
 from .columnar.table import Table
 from .columnar.interop import table_from_numpy, table_to_numpy
-from . import api, kernels, ops, parallel  # noqa: F401
+from . import api, kernels, ops, parallel, utils  # noqa: F401
+from .api import Aggregation, DecimalUtils, Filter, RowConversion, SortOrder
 
 __version__ = "0.1.0"
 
@@ -58,4 +62,9 @@ __all__ = [
     "DATE32",
     "table_from_numpy",
     "table_to_numpy",
+    "Aggregation",
+    "DecimalUtils",
+    "Filter",
+    "RowConversion",
+    "SortOrder",
 ]

@@ -1,15 +1,46 @@
 """API façade of the port: the reference's Java class surface, one
 Python class per Java class (PyTorch twin of the JAX package's
-``api.py``). This slice carries ``RowConversion``."""
+``api.py``). This slice carries ``RowConversion`` and ``DecimalUtils``,
+and the relational extensions ``SortOrder``, ``Aggregation`` and
+``Filter``."""
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 from .columnar.column import Column
 from .columnar.dtypes import DType
 from .columnar.table import Table
+from .ops import aggregate as _aggregate
+from .ops import decimal as _decimal
+from .ops import filter as _filter
 from .ops import row_conversion as _row_conversion
+from .ops import sort as _sort
+
+
+class DecimalUtils:
+    """DecimalUtils.java:41-137 — DECIMAL128 arithmetic returning a
+    2-column table {BOOL8 overflow, DECIMAL128 result}."""
+
+    @staticmethod
+    def multiply128(a: Column, b: Column, product_scale: int) -> Table:
+        return _decimal.multiply128(a, b, product_scale)
+
+    @staticmethod
+    def divide128(a: Column, b: Column, quotient_scale: int) -> Table:
+        return _decimal.divide128(a, b, quotient_scale)
+
+    @staticmethod
+    def integerDivide128(a: Column, b: Column) -> Table:
+        return _decimal.integer_divide128(a, b)
+
+    @staticmethod
+    def add128(a: Column, b: Column, target_scale: int) -> Table:
+        return _decimal.add128(a, b, target_scale)
+
+    @staticmethod
+    def subtract128(a: Column, b: Column, target_scale: int) -> Table:
+        return _decimal.subtract128(a, b, target_scale)
 
 
 class RowConversion:
@@ -32,3 +63,41 @@ class RowConversion:
         vec: Sequence[Column], schema: Sequence[DType]
     ) -> Table:
         return _row_conversion.convert_from_rows_fixed_width_optimized(vec, schema)
+
+
+# ---- relational extensions (BASELINE.md staged configs 2-3; no Java
+# counterpart in the reference — the plugin calls cudf directly) ----
+
+
+class SortOrder:
+    """ORDER BY over a Table (ops/sort.py)."""
+
+    SortKey = _sort.SortKey
+
+    @staticmethod
+    def sort(table: Table, keys) -> Table:
+        return _sort.sort_table(table, keys)
+
+    @staticmethod
+    def order(table: Table, keys):
+        return _sort.sort_order(table, keys)
+
+
+class Aggregation:
+    """GROUP BY over a Table (ops/aggregate.py)."""
+
+    Agg = _aggregate.Agg
+
+    @staticmethod
+    def groupBy(
+        table: Table, keys: Sequence[int], aggs, capacity: Optional[int] = None
+    ) -> Table:
+        return _aggregate.group_by(table, keys, aggs, capacity)
+
+
+class Filter:
+    """WHERE-clause row compaction (ops/filter.py)."""
+
+    @staticmethod
+    def apply(table: Table, predicate) -> Table:
+        return _filter.filter_table(table, predicate)

@@ -62,3 +62,26 @@ def from_char_matrix(chars, lengths, validity=None, dtype=None) -> Column:
     if dtype is not None:
         return Column(dtype, data, validity, offsets)
     return make_string_column(data, offsets, validity)
+
+
+def take(col: Column, idx: torch.Tensor) -> Column:
+    """Rows ``idx`` of a varlen column: the bytes and offsets the JAX
+    package's char-matrix gather gives (null rows become empty), read
+    straight from the payload. The payload size is data-dependent: one
+    host sync reads it."""
+    idx = idx.long()
+    lengths = col.string_lengths()[idx]
+    validity = None if col.validity is None else col.validity[idx]
+    offsets = torch.cat(
+        [
+            torch.zeros(1, dtype=torch.int32, device=idx.device),
+            torch.cumsum(lengths, 0, dtype=torch.int32),
+        ]
+    )
+    total = int(offsets[-1])
+    row = torch.repeat_interleave(
+        torch.arange(idx.shape[0], device=idx.device), lengths.long(), output_size=total
+    )
+    pos = torch.arange(total, device=idx.device) - offsets[:-1].long()[row]
+    data = col.data[col.offsets[idx].long()[row] + pos]
+    return Column(col.dtype, data, validity, offsets)

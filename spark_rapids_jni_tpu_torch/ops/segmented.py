@@ -1,12 +1,27 @@
-"""Scans over torch tensors.
+"""Scans and segmented reductions over sorted runs (PyTorch twin of the
+JAX package's ``ops/segmented.py``).
 
-Only ``hs_cumsum``'s contract is ported: an inclusive prefix sum in the
-input's dtype. The JAX package builds it from Hillis-Steele shifted adds
-because ``jnp.cumsum`` lowers to the TPU's slow reduce-window; on the
-card ``torch.cumsum`` is the scan.
+The reduction contract is the JAX package's: rows arrive sorted by
+group key, segment ids are nondecreasing from 0, and each group's
+result lands in a dense ``[capacity]`` slot.
+
+The JAX package builds every scan from Hillis-Steele shifted adds
+because ``jnp.cumsum`` lowers to the TPU's slow reduce-window. On the
+card ``torch.cumsum`` is the scan, with two consequences here:
+
+- integer segment sums (``seg_sum``) are one global ``cumsum`` and a
+  difference at the segment ends: integer addition wraps mod 2^64 in
+  any order, so the result equals the JAX package's segmented scan;
+- float segment sums keep the segmented Hillis-Steele scan
+  (``seg_cumsum``), pass for pass: the order of the float additions
+  then is the JAX package's, so the sums are bit-identical to it and
+  the same on every device, and a group's Inf or NaN stays in that
+  group.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -15,3 +30,106 @@ def hs_cumsum(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """Inclusive cumsum along ``axis``, keeping ``x.dtype`` (torch
     widens integer cumsums to int64 unless told otherwise)."""
     return torch.cumsum(x, dim=axis, dtype=x.dtype)
+
+
+def seg_ids_from_boundary(boundary: torch.Tensor) -> torch.Tensor:
+    """bool [n] run-start flags -> int32 [n] nondecreasing segment ids
+    starting at 0 (boundary[0] must be True for nonempty input)."""
+    return torch.cumsum(boundary, dim=0, dtype=torch.int32) - 1
+
+
+def group_starts(seg: torch.Tensor, capacity_plus_1: int) -> torch.Tensor:
+    """int32 ``starts[g]`` = first index with ``seg[i] >= g`` for g in
+    [0, capacity_plus_1) — n for groups past the end (segment ids are
+    consecutive from 0, so there are no holes below the last id)."""
+    g = torch.arange(capacity_plus_1, dtype=seg.dtype, device=seg.device)
+    return torch.searchsorted(seg, g, out_int32=True)
+
+
+def _shift_rows(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``x`` moved down ``k`` rows, zeros in front."""
+    return torch.cat([torch.zeros((k,) + x.shape[1:], dtype=x.dtype, device=x.device), x[:-k]])
+
+
+def _same_as_shifted(seg: torch.Tensor, k: int) -> torch.Tensor:
+    """bool [n]: row i and row i - k lie in one segment."""
+    return torch.cat([torch.zeros(k, dtype=torch.bool, device=seg.device), seg[:-k] == seg[k:]])
+
+
+def seg_cumsum(x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Inclusive running sum WITHIN each segment of a 1-D ``x``: the
+    segmented Hillis-Steele scan, log2(n) passes, so the prefix never
+    crosses a boundary and float additions happen in the JAX package's
+    order."""
+    n = seg.shape[0]
+    k = 1
+    while k < n:
+        x = x + torch.where(_same_as_shifted(seg, k), _shift_rows(x, k), 0)
+        k *= 2
+    return x
+
+
+def seg_sum(
+    x: torch.Tensor, seg: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor
+) -> torch.Tensor:
+    """Per-group sums of a 1-D ``x`` over sorted segments [starts[g],
+    ends[g]] (inclusive); 0 for empty groups (ends < starts)."""
+    n = x.shape[0]
+    ce = ends.clamp(0, max(n - 1, 0)).long()
+    if not x.is_floating_point():
+        ps = torch.cumsum(x, dim=0, dtype=x.dtype)
+        before = torch.where(starts > 0, ps[(starts.long() - 1).clamp(0, max(n - 1, 0))], 0)
+        total = ps[ce] - before
+    else:
+        total = seg_cumsum(x, seg)[ce]
+    return torch.where(ends < starts, 0, total)
+
+
+def lex_lt(a_ops: Sequence[torch.Tensor], b_ops: Sequence[torch.Tensor]):
+    """(a < b, a == b) lexicographically over parallel operand lists
+    (heterogeneous dtypes allowed; compared positionally)."""
+    lt = torch.zeros(a_ops[0].shape, dtype=torch.bool, device=a_ops[0].device)
+    eq = torch.ones(a_ops[0].shape, dtype=torch.bool, device=a_ops[0].device)
+    for a, b in zip(a_ops, b_ops):
+        lt = lt | (eq & (a < b))
+        eq = eq & (a == b)
+    return lt, eq
+
+
+def seg_scan_argext(ops: Sequence[torch.Tensor], seg: torch.Tensor, is_max: bool) -> torch.Tensor:
+    """int32 [n]: at each position, the index of the row with the
+    extreme operand tuple so far within its segment (running argmin /
+    argmax in ``order_keys`` ascending order; the earliest row wins
+    ties). Hillis-Steele: log2(n) passes carrying the operand tuple and
+    the winner index."""
+    n = seg.shape[0]
+    cur = list(ops)
+    win = torch.arange(n, dtype=torch.int32, device=seg.device)
+    k = 1
+    while k < n:
+        same = _same_as_shifted(seg, k)
+        cand = [_shift_rows(o, k) for o in cur]
+        lt, eq = lex_lt(cand, cur)
+        # candidate rows are earlier; on ties the earlier row wins
+        better = (lt | eq) if not is_max else ~lt
+        take = same & better
+        cur = [torch.where(take, c, o) for c, o in zip(cand, cur)]
+        win = torch.where(take, _shift_rows(win, k), win)
+        k *= 2
+    return win
+
+
+def boundary_from_operands(sorted_ops: Sequence[torch.Tensor]) -> torch.Tensor:
+    """bool [n] run-start flags from sorted key operands (1-D or
+    [n, W] word matrices)."""
+    n = sorted_ops[0].shape[0]
+    boundary = torch.zeros(n, dtype=torch.bool, device=sorted_ops[0].device)
+    if n == 0:
+        return boundary
+    boundary[0] = True
+    for op in sorted_ops:
+        d = op[1:] != op[:-1]
+        if d.dim() > 1:
+            d = d.flatten(1).any(dim=1)
+        boundary[1:] |= d
+    return boundary

@@ -3,6 +3,8 @@ its constructors never quietly fall back to the CPU."""
 
 import ast
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -95,3 +97,38 @@ def test_interop_round_trip():
                 assert b[key] is None
             else:
                 np.testing.assert_array_equal(b[key], c[key])
+
+
+# Every module of the port's q1 slice, imported in a fresh interpreter in
+# which ``jax`` and the JAX package cannot be imported at all: the import
+# succeeds only if nothing it pulls in, directly or transitively, needs
+# either.
+Q1_SLICE_MODULES = [
+    "spark_rapids_jni_tpu_torch.utils.int128",
+    "spark_rapids_jni_tpu_torch.utils.int256",
+    "spark_rapids_jni_tpu_torch.ops.decimal",
+    "spark_rapids_jni_tpu_torch.ops.segmented",
+    "spark_rapids_jni_tpu_torch.ops.rowgather",
+    "spark_rapids_jni_tpu_torch.columnar.strings",
+    "spark_rapids_jni_tpu_torch.ops.sort",
+    "spark_rapids_jni_tpu_torch.ops.filter",
+    "spark_rapids_jni_tpu_torch.ops.aggregate",
+    "spark_rapids_jni_tpu_torch.api",
+]
+
+
+@pytest.mark.parametrize("module", Q1_SLICE_MODULES)
+def test_q1_slice_module_imports_without_jax(module):
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    bad = [m for m in _imported_modules(path) if m and m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    blocker = "import sys\nfor name in %r:\n    sys.modules[name] = None\n" % (FORBIDDEN,)
+    code = blocker + (
+        f"import {module}\n"
+        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in %r and sys.modules[m])\n"
+        "assert not loaded, loaded\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
