@@ -12,7 +12,8 @@ kernel -> JCUDF rows -> columns.
 
 Phases, each fatal on failure:
   1. device: a CUDA card must be present; prints its name and power limit
-  2. build: compiles every kernel source of the port (one nvcc each)
+  2. build: compiles every kernel source of the port (one nvcc each) and
+     the host codec's C++ source, all at once
   3. kernel parity: the kernel against its plain PyTorch version on the
      card, exact, over a matrix of types, nulls, seeds and row counts;
      times both with CUDA events
@@ -30,7 +31,22 @@ Phases, each fatal on failure:
      DECIMAL128 products -> group-by -> sort, every batch and the merge of
      all batches exactly equal to a host oracle; per-stage times, rows/s,
      a profile and the peak device memory
-  8. one JSON line of kernel numbers, the card line, then the verdict
+  8. joins, card against CPU: all six join types through ``join`` and
+     ``join_padded`` over 64 Ki-row sides (INT64 keys with nulls and
+     duplicates, STRING + INT32 keys of different pad widths, FLOAT64 keys
+     with NaN and -0.0, a DECIMAL128 key, empty sides, occupied masks, a
+     truncating capacity); the results must be equal
+  9. the third path, TPC-H q5 at SF10 (BASELINE.md config 3 on one card):
+     region, nation, 100,000 suppliers, 1,500,000 customers, 15,000,000
+     orders and ~60 M lineitem rows resident on the card; the build side
+     once, then per 4 Mi-row lineitem batch two joins, the revenue product
+     and a group-by, then the merge and ORDER BY revenue DESC; every
+     batch and the final rows exactly equal to a host oracle; stage
+     times, rows/s, ops per batch, a profile and the peak device memory
+  10. the host JCUDF codec (native/jcudf_rows.cpp, built with the host
+     compiler) over the 4 Mi-row batch of phase 4: byte-exact against the
+     card's convertToRows, and its decode gives the columns back
+  11. one JSON line of kernel numbers, the card line, then the verdict
 
 Exits non-zero, printing no verdict, without a card or without the port
 beside it. Data is made from fixed seeds.
@@ -438,26 +454,37 @@ def q1_table(arrays, device):
     ])
 
 
+def widen(data, precision):
+    """DECIMAL(12,2) int64 storage as DECIMAL128(precision, 2) limbs.
+    lineitem is DECIMAL(12,2); the 1 - x and 1 + x literals type as
+    DECIMAL(13,2)."""
+    from spark_rapids_jni_tpu_torch import DECIMAL128, Column
+
+    return Column(DECIMAL128(precision, 2), torch.stack([data, data >> 63], dim=-1))
+
+
+def disc_price(price, disc):
+    """l_extendedprice * (1 - l_discount) over DECIMAL(12,2) storage:
+    (12,2) x (13,2) -> (26,4), multiply128's i128 regime. Returns its
+    {overflow, product} Table (q1's sum_disc_price, q5's revenue)."""
+    from spark_rapids_jni_tpu_torch.api import DecimalUtils
+
+    return DecimalUtils.multiply128(widen(price, 12), widen(100 - disc, 13), 4)
+
+
 def q1_run(t, tick=None):
     """TPC-H q1 over one batch through the port's entry points (the
     chain of tests/test_tpch_q1.py with benchmarks/sf10_q1.py's static
     types). ``tick(stage)`` is called after each stage. Returns (sorted
     result Table, bool tensor: did any product overflow)."""
-    from spark_rapids_jni_tpu_torch import DECIMAL128, Column, Table
+    from spark_rapids_jni_tpu_torch import Table
     from spark_rapids_jni_tpu_torch.api import Aggregation, DecimalUtils, Filter, SortOrder
 
     tick = tick or (lambda stage: None)
-
-    def widen(data, precision):
-        # lineitem is DECIMAL(12,2); the 1 - x and 1 + x literals type
-        # as DECIMAL(13,2)
-        return Column(DECIMAL128(precision, 2), torch.stack([data, data >> 63], dim=-1))
-
     f = Filter.apply(t, t.columns[6].data <= Q1_CUTOFF)
     tick("filter")
     qty, price, disc, tax = f.columns[2:6]
-    # (12,2) x (13,2) -> (26,4): the i128 regime
-    m1 = DecimalUtils.multiply128(widen(price.data, 12), widen(100 - disc.data, 13), 4)
+    m1 = disc_price(price.data, disc.data)
     # (26,4) x (13,2) -> (38,6): the noshift regime
     m2 = DecimalUtils.multiply128(m1.columns[1], widen(100 + tax.data, 13), 6)
     overflow = (m1.columns[0].data != 0).any() | (m2.columns[0].data != 0).any()
@@ -474,13 +501,10 @@ def q1_run(t, tick=None):
     return out, overflow
 
 
-def q1_op_counts(t):
-    """torch ops dispatched per q1 stage over one batch, and by one of
-    the decimal avgs' long divisions (``utils.int256.divide_and_round``
-    over 6 group rows, as ``group_by`` calls it)."""
+def op_counts(run):
+    """torch ops dispatched by ``run(tick)`` between its ``tick(stage)``
+    calls: stage -> count."""
     from torch.utils._python_dispatch import TorchDispatchMode
-
-    from spark_rapids_jni_tpu_torch.utils import int256 as u256
 
     class Counter(TorchDispatchMode):
         count = 0
@@ -497,14 +521,26 @@ def q1_op_counts(t):
         last[0] = counter.count
 
     with counter:
-        q1_run(t, tick)
+        run(tick)
+    return counts
+
+
+def q1_op_counts(t):
+    """torch ops dispatched per q1 stage over one batch, and by one of
+    the decimal avgs' long divisions (``utils.int256.divide_and_round``
+    over 6 group rows, as ``group_by`` calls it)."""
+    from spark_rapids_jni_tpu_torch.utils import int256 as u256
+
+    counts = op_counts(lambda tick: q1_run(t, tick))
     dev = t.columns[0].device
     num = tuple(torch.full((6,), 10**12, dtype=torch.int64, device=dev) for _ in range(4))
     cnt = torch.full((6,), 10**6, dtype=torch.int64, device=dev)
-    before = counter.count
-    with counter:
+
+    def division(tick):
         u256.divide_and_round(num, (cnt, 0), torch.zeros(6, dtype=torch.bool, device=dev))
-    counts["one avg division"] = counter.count - before
+        tick("one avg division")
+
+    counts.update(op_counts(division))
     return counts
 
 
@@ -628,7 +664,435 @@ def q1_sf10(counters, card):
           f"(batches resident: {data_bytes}); card: {card}", flush=True)
 
 
+HOWS = ("inner", "left", "right", "full", "left_semi", "left_anti")
+JOIN_KEYS = {  # key layout -> (left_on, right_on) over join_spec's columns
+    "int64": ([0], [0]),
+    "string+int32": ([1, 4], [1, 4]),
+    "float64": ([2], [2]),
+    "decimal128": ([3], [3]),
+}
+M64 = (1 << 64) - 1
+
+
+def string_column_spec(words):
+    """Interop form of a STRING column holding ``words``."""
+    enc = [w.encode() for w in words]
+    offsets = np.concatenate([[0], np.cumsum([len(e) for e in enc])]).astype(np.int32)
+    return {"dtype": ("string", 0, None, None), "validity": None, "offsets": offsets,
+            "data": np.frombuffer(b"".join(enc), np.uint8).copy()}
+
+
+def join_spec(n, seed, long_strings=False):
+    """One side of the join phase in the interop form. Keys repeat ~8
+    times (cross products) and are null in 10 % of rows: 0 INT64; 1
+    STRING, with empty strings (``long_strings`` adds 20-byte keys, so
+    the two sides' char matrices bucket to different widths); 2 FLOAT64
+    with NaN, -0.0, 0.0 and infinities; 3 DECIMAL128(38,2) beyond 64
+    bits; 4 INT32 in 0..3 (no nulls). Payloads: 5 STRING (20 % null),
+    6 INT64 (no mask)."""
+    rng = np.random.default_rng(seed)
+    k = max(n // 8, 1)
+
+    def col(spec, p_null):
+        spec["validity"] = rng.random(n) >= p_null if p_null else None
+        return spec
+
+    draws = rng.integers(0, k, n)
+    words = [str(x) for x in draws]
+    for i in np.flatnonzero(rng.random(n) < 0.02):
+        words[i] = ""
+    if long_strings:
+        for i in np.flatnonzero(rng.random(n) < 0.05):
+            words[i] = f"long-key-{draws[i]:011d}"
+    floats = rng.integers(-(k // 2), k // 2 + 1, n) / 4.0
+    special, p = rng.random(n), max(0.002, 1.5 / n)  # a few of each even in small tables
+    for i, v in enumerate((np.nan, -0.0, 0.0, np.inf, -np.inf)):
+        floats[(special >= p * i) & (special < p * (i + 1))] = v
+    dec = [int(x) * 10**20 for x in rng.integers(-(k // 2), k // 2 + 1, n)]
+    limbs = np.array([[v & M64, (v >> 64) & M64] for v in dec], np.uint64).view(np.int64)
+    payload = [f"payload-{x}" if x % 5 else "" for x in rng.integers(0, 1000, n)]
+
+    def fixed(dt, data):
+        return {"dtype": dt, "data": data, "validity": None, "offsets": None}
+
+    return [
+        col(fixed(("int", 64, None, None), draws.astype(np.int64)), 0.1),
+        col(string_column_spec(words), 0.1),
+        col(fixed(("float", 64, None, None), floats), 0.1),
+        col(fixed(("decimal", 128, 38, 2), limbs), 0.1),
+        fixed(("int", 32, None, None), rng.integers(0, 4, n).astype(np.int32)),
+        col(string_column_spec(payload), 0.2),
+        fixed(("int", 64, None, None), rng.integers(-(2**62), 2**62, n)),
+    ]
+
+
+def join_results(left, right, occ_l, occ_r):
+    """Every join of the card-vs-CPU phase over one device's tables:
+    name -> (Table, occupied mask or None). All six hows through ``join``
+    and ``join_padded`` for each key layout of ``JOIN_KEYS`` and for an
+    empty side; ``join_padded`` with occupied masks on both sides; and a
+    ``join_padded`` whose capacity truncates."""
+    from spark_rapids_jni_tpu_torch.api import Join
+    from spark_rapids_jni_tpu_torch.ops.join import join_padded
+    from spark_rapids_jni_tpu_torch.ops.sort import gather
+
+    none = torch.zeros(0, dtype=torch.int64, device=occ_l.device)
+    out = {}
+    layouts = [(label, left, right, keys) for label, keys in JOIN_KEYS.items()]
+    layouts += [("empty left", gather(left, none), right, JOIN_KEYS["int64"]),
+                ("empty right", left, gather(right, none), JOIN_KEYS["int64"])]
+    for label, lt, rt, (lk, rk) in layouts:
+        for how in HOWS:
+            j = Join.join(lt, rt, lk, rk, how)
+            out[f"join {label} {how}"] = (j, None)
+            out[f"join_padded {label} {how}"] = join_padded(lt, rt, lk, rk, j.num_rows + 16, how)
+            if label == "int64":
+                out[f"join_padded {label} {how} occupied"] = join_padded(
+                    lt, rt, lk, rk, j.num_rows + 16, how, occ_l, occ_r)
+    inner = out["join int64 inner"][0].num_rows
+    tbl, occ, needed = join_padded(left, right, [0], [0], inner // 2, "inner", with_stats=True)
+    if int(needed) != inner:
+        raise AssertionError(f"join_padded needed {int(needed)} rows, join gave {inner}")
+    out["join_padded int64 inner truncated"] = (tbl, occ)
+    return out
+
+
+def join_card_vs_cpu(n):
+    """The join phase: ``join_results`` on the card and on the CPU over
+    the same inputs; every output column and occupied mask must be
+    equal."""
+    from spark_rapids_jni_tpu_torch.columnar.interop import table_from_numpy, table_to_numpy
+
+    specs = (join_spec(n, 21), join_spec(n, 22, long_strings=True))
+    rng = np.random.default_rng(23)
+    occ = (rng.random(n) < 0.8, rng.random(n) < 0.8)
+    t0 = time.perf_counter()
+    results = {}
+    for dev in ("cuda", "cpu"):
+        lt, rt = (table_from_numpy(s, device=dev) for s in specs)
+        masks = [torch.from_numpy(o).to(dev) for o in occ]
+        res = join_results(lt, rt, *masks)
+        results[dev] = {k: (table_to_numpy(t), None if o is None else o.cpu().numpy())
+                        for k, (t, o) in res.items()}
+    for name, (want, want_occ) in results["cpu"].items():
+        got, got_occ = results["cuda"][name]
+        if len(got) != len(want) or not same_array(got_occ, want_occ):
+            raise AssertionError(f"join card vs cpu [{name}]: columns or occupied mask differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            for key in ("data", "validity", "offsets"):
+                if not same_array(g[key], w[key]):
+                    raise AssertionError(f"join card vs cpu [{name}]: column {i} {key} differs")
+    print(f"join card vs cpu: {len(results['cpu'])} joins exact at {n} rows a side in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---- TPC-H q5 (BASELINE.md config 3, on one card) ----
+
+Q5_REGIONS = ("AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST")
+Q5_NATIONS = (  # TPC-H clause 4.2.3: (n_name, n_regionkey); n_nationkey is the index
+    ("ALGERIA", 0), ("ARGENTINA", 1), ("BRAZIL", 1), ("CANADA", 1), ("EGYPT", 4),
+    ("ETHIOPIA", 0), ("FRANCE", 3), ("GERMANY", 3), ("INDIA", 2), ("INDONESIA", 2),
+    ("IRAN", 4), ("IRAQ", 4), ("JAPAN", 2), ("JORDAN", 4), ("KENYA", 0),
+    ("MOROCCO", 0), ("MOZAMBIQUE", 0), ("PERU", 1), ("CHINA", 2), ("ROMANIA", 3),
+    ("SAUDI ARABIA", 4), ("VIETNAM", 2), ("RUSSIA", 3), ("UNITED KINGDOM", 3),
+    ("UNITED STATES", 1),
+)
+Q5_REGION = "ASIA"
+Q5_DATE_LO, Q5_DATE_HI = 8766, 9131  # [1994-01-01, 1995-01-01), days since epoch
+Q5_SF10 = {"n_supp": 100_000, "n_cust": 1_500_000, "n_ord": 15_000_000}
+Q5_BATCH = 1 << 22  # 4 Mi lineitem rows, the q1 chunk
+Q5_STAGES = ("build", "join_orders", "join_supplier", "decimal", "group_by", "merge+sort")
+
+
+def q5_data(n_supp, n_cust, n_ord, seed=5):
+    """TPC-H q5's columns with dbgen's shapes (clause 4.2), drawn on the
+    host from ``seed``: sparse order keys (8 of every 32), customer keys
+    off multiples of 3, order dates in [1992-01-01, 1998-08-02], 1-7
+    lines per order, l_extendedprice = quantity (1-50) x a retail price
+    in [900.00, 2098.99], discount 0.00-0.10; DECIMAL(12,2) as unscaled
+    int64."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(n_ord)
+    active = rng.integers(0, n_cust - n_cust // 3, n_ord)
+    orderkey = 32 * (i // 8) + i % 8 + 1
+    lines = rng.integers(1, 8, n_ord)
+    l_orderkey = np.repeat(orderkey, lines)
+    n_li = len(l_orderkey)
+    return {
+        "s_nationkey": rng.integers(0, 25, n_supp),
+        "c_nationkey": rng.integers(0, 25, n_cust),
+        "o_orderkey": orderkey,
+        "o_custkey": 3 * (active // 2) + active % 2 + 1,
+        "o_orderdate": rng.integers(8035, 10441, n_ord).astype(np.int32),
+        "l_orderkey": l_orderkey,
+        "l_suppkey": rng.integers(1, n_supp + 1, n_li),
+        "l_extendedprice": rng.integers(1, 51, n_li) * rng.integers(90_000, 209_900, n_li),
+        "l_discount": rng.integers(0, 11, n_li),
+    }
+
+
+def q5_tables(d, device, batch=Q5_BATCH):
+    """The q5 tables on ``device``; lineitem as a list of tables of at
+    most ``batch`` rows."""
+    from spark_rapids_jni_tpu_torch import DATE32, DECIMAL64, INT64, STRING, Column, Table
+
+    def put(a, dt=INT64):
+        return Column(dt, torch.from_numpy(np.ascontiguousarray(a)).to(device))
+
+    dec = DECIMAL64(12, 2)
+    n_li = len(d["l_orderkey"])
+    return {
+        "region": Table([put(np.arange(5)),
+                         Column.from_pylist(list(Q5_REGIONS), STRING, device=device)]),
+        "nation": Table([put(np.arange(25)),
+                         Column.from_pylist([nm for nm, _ in Q5_NATIONS], STRING, device=device),
+                         put(np.array([r for _, r in Q5_NATIONS]))]),
+        "supplier": Table([put(np.arange(1, len(d["s_nationkey"]) + 1)), put(d["s_nationkey"])]),
+        "customer": Table([put(np.arange(1, len(d["c_nationkey"]) + 1)), put(d["c_nationkey"])]),
+        "orders": Table([put(d["o_orderkey"]), put(d["o_custkey"]),
+                         put(d["o_orderdate"], DATE32)]),
+        "lineitem": [
+            Table([put(d["l_orderkey"][lo:lo + batch]), put(d["l_suppkey"][lo:lo + batch]),
+                   put(d["l_extendedprice"][lo:lo + batch], dec),
+                   put(d["l_discount"][lo:lo + batch], dec)])
+            for lo in range(0, n_li, batch)
+        ],
+    }
+
+
+def string_equals(col, literal):
+    """bool [n]: the string column equals ``literal`` (nulls: False),
+    over its padded char matrix."""
+    from spark_rapids_jni_tpu_torch.columnar.strings import to_char_matrix
+
+    chars, _lengths = to_char_matrix(col)
+    lit = list(literal.encode())
+    if len(lit) > chars.shape[1]:
+        return torch.zeros(chars.shape[0], dtype=torch.bool, device=chars.device)
+    want = torch.full((chars.shape[1],), -1, dtype=chars.dtype, device=chars.device)
+    want[: len(lit)] = torch.tensor(lit, dtype=chars.dtype)
+    return (chars == want).all(dim=1) & col.validity_or_true()
+
+
+def q5_build(t, tick=None):
+    """q5's build side, once per query: ASIA's nations, their customers,
+    the orders of 1994 joined to them. Returns the intermediate tables;
+    ``build`` is (o_orderkey, c_nationkey, n_name)."""
+    from spark_rapids_jni_tpu_torch import Table
+    from spark_rapids_jni_tpu_torch.api import Filter, Join
+
+    region = t["region"]
+    asia = Filter.apply(region, string_equals(region.columns[1], Q5_REGION))
+    # n_nationkey, n_name, n_regionkey, r_regionkey, r_name
+    nations = Join.join(t["nation"], asia, [2], [0])
+    # c_custkey, c_nationkey + nations' columns
+    cust = Join.join(t["customer"], nations, [1], [0])
+    cust = Table([cust.columns[0], cust.columns[1], cust.columns[3]])
+    date = t["orders"].columns[2].data
+    orders = Filter.apply(t["orders"], (date >= Q5_DATE_LO) & (date < Q5_DATE_HI))
+    # o_orderkey, o_custkey, o_orderdate, c_custkey, c_nationkey, n_name
+    oc = Join.join(orders, cust, [1], [0])
+    build = Table([oc.columns[0], oc.columns[4], oc.columns[5]])
+    if tick:
+        tick("build")
+    return {"asia": asia, "nations": nations, "customers": cust, "orders": orders,
+            "build": build}
+
+
+def q5_batch(li, build, supplier, tick=None):
+    """q5 over one lineitem batch: join the build on l_orderkey, join
+    supplier on (l_suppkey, c_nationkey), revenue, sum by n_name.
+    Returns the intermediate tables; ``partial`` is (n_name, revenue)."""
+    from spark_rapids_jni_tpu_torch import Table
+    from spark_rapids_jni_tpu_torch.api import Aggregation, Join
+
+    tick = tick or (lambda stage: None)
+    # l_orderkey, l_suppkey, l_extendedprice, l_discount, o_orderkey, c_nationkey, n_name
+    j1 = Join.join(li, build, [0], [0])
+    tick("join_orders")
+    # + s_suppkey, s_nationkey
+    j2 = Join.join(j1, supplier, [1, 5], [0, 1])
+    tick("join_supplier")
+    revenue = disc_price(j2.columns[2].data, j2.columns[3].data)
+    tick("decimal")
+    partial = Aggregation.groupBy(Table([j2.columns[6], revenue.columns[1]]), [0],
+                                  [Aggregation.Agg("sum", 1)])
+    tick("group_by")
+    return {"join_orders": j1, "join_supplier": j2, "revenue": revenue, "partial": partial}
+
+
+def concat_tables(tables):
+    """Rows of ``tables`` (one schema, exact string payloads) in order."""
+    from spark_rapids_jni_tpu_torch import Column, Table
+
+    cols = []
+    for parts in zip(*(t.columns for t in tables)):
+        offsets = None
+        if parts[0].is_varlen:
+            offs, base = [parts[0].offsets[:1]], 0
+            for c in parts:
+                offs.append(c.offsets[1:] + base)
+                base += c.data.shape[0]
+            offsets = torch.cat(offs)
+        cols.append(Column(parts[0].dtype, torch.cat([c.data for c in parts]),
+                           torch.cat([c.validity_or_true() for c in parts]), offsets))
+    return Table(cols)
+
+
+def q5_merge(partials, tick=None):
+    """Sum the batches' partial rows by n_name, ORDER BY revenue DESC."""
+    from spark_rapids_jni_tpu_torch.api import Aggregation, SortOrder
+
+    g = Aggregation.groupBy(concat_tables(partials), [0], [Aggregation.Agg("sum", 1)])
+    out = SortOrder.sort(g, [SortOrder.SortKey(1, ascending=False)])
+    if tick:
+        tick("merge+sort")
+    return out
+
+
+def q5_oracle(d, lo=0, hi=None):
+    """Exact q5 revenue (scale 4) by n_name over lineitem rows [lo, hi),
+    numpy int64 on the host (a 4 Mi-row batch sums below 4.4e15)."""
+    l_orderkey = d["l_orderkey"][lo:hi]
+    k = l_orderkey - 1
+    order = (k // 32) * 8 + k % 32  # o_orderkey = 32 * (i // 8) + i % 8 + 1
+    date = d["o_orderdate"][order]
+    c_nat = d["c_nationkey"][d["o_custkey"][order] - 1]
+    s_nat = d["s_nationkey"][d["l_suppkey"][lo:hi] - 1]
+    region = np.array([r for _, r in Q5_NATIONS])[c_nat]
+    keep = ((date >= Q5_DATE_LO) & (date < Q5_DATE_HI) & (c_nat == s_nat)
+            & (region == Q5_REGIONS.index(Q5_REGION)))
+    revenue = d["l_extendedprice"][lo:hi] * (100 - d["l_discount"][lo:hi])
+    out = {}
+    for nk in np.unique(c_nat[keep]):
+        out[Q5_NATIONS[nk][0]] = int(revenue[keep & (c_nat == nk)].sum())
+    return out
+
+
+def q5_rows(out):
+    """(n_name, revenue) rows of a q5 result table as Python values."""
+    return [tuple(r) for r in zip(*out.to_pylists())]
+
+
+def q5_final_rows(revenue_by_name):
+    """q5's final ORDER BY revenue DESC over exact sums (ties keep
+    n_name order, as the stable sort over the group-by output does)."""
+    return sorted(revenue_by_name.items(), key=lambda kv: (-kv[1], kv[0]))
+
+
+def q5_sf10(counters, card):
+    """The q5 path at SF10: tables drawn on the host and copied to the
+    card, the query timed stage by stage, every batch's partial result
+    and the final rows held against the host oracle."""
+    t0 = time.perf_counter()
+    d = q5_data(**Q5_SF10)
+    gen_s = time.perf_counter() - t0
+    n_li = len(d["l_orderkey"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = q5_tables(d, "cuda")
+    torch.cuda.synchronize()
+    data_bytes = torch.cuda.memory_allocated() - base
+    print(f"q5 data: lineitem {n_li} rows in {len(t['lineitem'])} batches, orders "
+          f"{len(d['o_orderkey'])}, customer {len(d['c_nationkey'])}, supplier "
+          f"{len(d['s_nationkey'])}; drawn in {gen_s:.1f} s, {data_bytes} bytes on the card",
+          flush=True)
+
+    warm = q5_build(t)  # warm-up: first launches of every op, outside the timing
+    q5_batch(t["lineitem"][0], warm["build"], t["supplier"])
+    torch.cuda.synchronize()
+    del warm
+    for name in counters:
+        counters[name].launches = 0
+    stage_ms = {s: [] for s in Q5_STAGES}
+    last = [time.perf_counter()]
+
+    def tick(stage):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage_ms[stage].append((now - last[0]) * 1e3)
+        last[0] = now
+
+    start = last[0]
+    built = q5_build(t, tick)
+    parts = [q5_batch(li, built["build"], t["supplier"], tick) for li in t["lineitem"]]
+    final = q5_merge([p["partial"] for p in parts], tick)
+    total_s = last[0] - start
+    launches = {name: c.launches for name, c in counters.items()}
+
+    for i, p in enumerate(parts):
+        if bool(p["revenue"].columns[0].data.any()):
+            raise AssertionError(f"q5 batch {i}: a revenue product overflowed")
+        want = sorted(q5_oracle(d, i * Q5_BATCH, (i + 1) * Q5_BATCH).items())
+        if q5_rows(p["partial"]) != want:
+            raise AssertionError(f"q5 batch {i}: partial result differs from the host oracle")
+    want_final = q5_final_rows(q5_oracle(d))
+    if q5_rows(final) != want_final or len(want_final) != 5:
+        raise AssertionError(f"q5 final differs from the host oracle: {q5_rows(final)}")
+
+    med = {s: float(np.median(v)) for s, v in stage_ms.items()}
+    b = built
+    print(f"q5 sf10: build rows asia {b['asia'].num_rows}, nations {b['nations'].num_rows}, "
+          f"customers {b['customers'].num_rows}, orders of 1994 {b['orders'].num_rows}, "
+          f"build {b['build'].num_rows}; batch 0 rows after join_orders "
+          f"{parts[0]['join_orders'].num_rows}, after join_supplier "
+          f"{parts[0]['join_supplier'].num_rows}")
+    print(f"q5 sf10: {len(parts)} batch partials and the final rows exact against the host "
+          f"oracle; kernel launches on the q5 path {json.dumps(launches)}")
+    print(f"q5 sf10 per-stage ms (build and merge+sort once, the rest median over batches): "
+          f"{json.dumps(med)}")
+    print(f"q5 SF10 lineitem rows/s: {n_li / total_s:.4g} ({n_li} rows in "
+          f"{total_s * 1e3:.1f} ms, build to final sort)")
+    print(f"q5 sf10 result (revenue at scale 4): {json.dumps(q5_rows(final))}")
+    li0 = t["lineitem"][0]
+    counts = op_counts(lambda tick: q5_batch(li0, built["build"], t["supplier"], tick))
+    print(f"q5 torch ops dispatched per batch: {json.dumps(counts)}")
+    profile_stage("q5 batch (4 Mi rows)", lambda: q5_batch(li0, built["build"], t["supplier"]),
+                  top=10)
+    print(f"q5 sf10 peak device memory: {torch.cuda.max_memory_allocated()} bytes "
+          f"(tables resident: {data_bytes}); card: {card}", flush=True)
+
+
+def host_codec(spec, rows, card):
+    """The host JCUDF codec over the rung-1 lineitem batch: its rows must
+    equal the card's convertToRows bytes, and its decode must give the
+    columns back."""
+    from spark_rapids_jni_tpu_torch.columnar.dtypes import DType
+    from spark_rapids_jni_tpu_torch.ops import row_conversion_host as host
+    from spark_rapids_jni_tpu_torch.ops.row_conversion import row_batch_bytes
+
+    dtypes = [DType(*s["dtype"]) for s in spec]
+    datas = [s["data"] for s in spec]
+    times = {"encode": [], "decode": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host_rows = host.encode_rows(datas, dtypes)
+        t1 = time.perf_counter()
+        back, valids = host.decode_rows(host_rows, dtypes)
+        times["encode"].append((t1 - t0) * 1e3)
+        times["decode"].append((time.perf_counter() - t1) * 1e3)
+    card_rows = np.concatenate([row_batch_bytes(r) for r in rows])
+    if host_rows.tobytes() != card_rows.tobytes():
+        raise AssertionError("host JCUDF rows differ from the card's convertToRows bytes")
+    for i, (d, b, v) in enumerate(zip(datas, back, valids)):
+        if not np.array_equal(d, b) or not v.all():
+            raise AssertionError(f"host JCUDF decode differs at column {i}")
+    n = len(datas[0])
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"host codec: {n} rows x {host_rows.shape[1]} B byte-exact against the card's "
+          f"convertToRows, decode exact; host ms (median of 3) {json.dumps(ms)}; card: {card}",
+          flush=True)
+
+
 def main() -> int:
+    phase_t = [time.perf_counter()]
+
+    def phase_done(label):
+        now = time.perf_counter()
+        print(f"phase {label}: {now - phase_t[0]:.1f} s wall", flush=True)
+        phase_t[0] = now
+
     # ---- 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -644,7 +1108,7 @@ def main() -> int:
     from spark_rapids_jni_tpu_torch.parallel import spark_hash
 
     # ---- 2. build
-    sources = sorted(f[:-3] for f in os.listdir(_build.SRC_DIR) if f.endswith(".cu"))
+    sources = _build.kernel_sources() + sorted(_build.HOST_SOURCES)
     t0 = time.perf_counter()
     logs = _build.build(*sources)
     print(f"build: {sources} in {time.perf_counter() - t0:.2f} s", flush=True)
@@ -676,7 +1140,8 @@ def main() -> int:
             parity(matrix, seed)
             for col in matrix.columns:
                 parity(port.Table([col]), seed)
-    full = table_from_numpy(lineitem_spec(N_MAIN), device="cuda")
+    spec = lineitem_spec(N_MAIN)
+    full = table_from_numpy(spec, device="cuda")
     for seed in seeds:
         parity(full, seed)
     print(f"kernel parity: {n_cases} cases exact (max |diff| {max_err})", flush=True)
@@ -768,13 +1233,29 @@ def main() -> int:
               f"{to_ms:.3f} ms, convertFromRows {from_ms:.3f} ms, exact", flush=True)
         del table, r
 
+    phase_done("1-5 device, build, kernel parity, main path, shapes")
+
     # ---- 6. card against CPU, exact
     card_vs_cpu(N_MIXED)
+    phase_done("6 card vs cpu")
 
     # ---- 7. the q1 path at SF10, counted
     q1_sf10({"murmur3_chain": murmur3}, card)
+    phase_done("7 q1 sf10")
 
-    # ---- 8. kernel numbers, card, verdict
+    # ---- 8. joins, card against CPU, exact
+    join_card_vs_cpu(N_MIXED)
+    phase_done("8 join card vs cpu")
+
+    # ---- 9. the q5 path at SF10, counted
+    q5_sf10({"murmur3_chain": murmur3}, card)
+    phase_done("9 q5 sf10")
+
+    # ---- 10. host JCUDF codec against the card's rows
+    host_codec(spec, rows, card)
+    phase_done("10 host codec")
+
+    # ---- 11. kernel numbers, card, verdict
     k = timings["keys"]
     print(json.dumps({"kernels": [{
         "name": "murmur3_chain",

@@ -12,6 +12,8 @@ Layer map of the ported slices:
   api.DecimalUtils                DECIMAL128 arithmetic (ops/decimal, utils/)
   api.SortOrder, Aggregation,     ORDER BY, GROUP BY, WHERE (ops/sort,
     Filter                          ops/aggregate, ops/filter, ops/segmented)
+  api.Join                        equi-joins (ops/join)
+  ops/row_conversion_host         host JCUDF codec over native/jcudf_rows.cpp
   parallel/spark_hash             Spark HashPartitioning placement
   kernels/murmur3 + csrc/         the hand-written Hopper Murmur3 kernel
   columnar/                       DType, Column, Table, strings, interop
@@ -38,7 +40,7 @@ from .columnar.column import Column
 from .columnar.table import Table
 from .columnar.interop import table_from_numpy, table_to_numpy
 from . import api, kernels, ops, parallel, utils  # noqa: F401
-from .api import Aggregation, DecimalUtils, Filter, RowConversion, SortOrder
+from .api import Aggregation, DecimalUtils, Filter, Join, RowConversion, SortOrder
 
 __version__ = "0.1.0"
 
@@ -65,6 +67,7 @@ __all__ = [
     "Aggregation",
     "DecimalUtils",
     "Filter",
+    "Join",
     "RowConversion",
     "SortOrder",
 ]

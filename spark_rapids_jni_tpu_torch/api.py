@@ -1,8 +1,8 @@
 """API façade of the port: the reference's Java class surface, one
 Python class per Java class (PyTorch twin of the JAX package's
-``api.py``). This slice carries ``RowConversion`` and ``DecimalUtils``,
-and the relational extensions ``SortOrder``, ``Aggregation`` and
-``Filter``."""
+``api.py``). The port carries ``RowConversion`` and ``DecimalUtils``,
+and the relational extensions ``SortOrder``, ``Aggregation``,
+``Filter`` and ``Join``."""
 
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from .columnar.table import Table
 from .ops import aggregate as _aggregate
 from .ops import decimal as _decimal
 from .ops import filter as _filter
+from .ops import join as _join
 from .ops import row_conversion as _row_conversion
 from .ops import sort as _sort
 
@@ -101,3 +102,17 @@ class Filter:
     @staticmethod
     def apply(table: Table, predicate) -> Table:
         return _filter.filter_table(table, predicate)
+
+
+class Join:
+    """Equi-joins (ops/join.py)."""
+
+    @staticmethod
+    def join(
+        left: Table,
+        right: Table,
+        left_on: Sequence[int],
+        right_on: Sequence[int],
+        how: str = "inner",
+    ) -> Table:
+        return _join.join(left, right, left_on, right_on, how)

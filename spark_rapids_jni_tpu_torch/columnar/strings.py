@@ -43,11 +43,13 @@ def to_char_matrix(col: Column, L: int | None = None):
     return chars, lengths
 
 
-def from_char_matrix(chars, lengths, validity=None, dtype=None) -> Column:
+def from_char_matrix(chars, lengths, validity=None, total=None, dtype=None) -> Column:
     """Pack an int32 [n, L] char matrix (+ per-row lengths) into an
     Arrow string Column; null rows get length 0. ``dtype`` keeps a
     non-STRING varlen type (BINARY). The payload size is
-    data-dependent: one host sync reads it."""
+    data-dependent: one host sync reads it, unless a byte capacity
+    ``total`` (e.g. n * L) is given; the payload then has that size and
+    the bytes past ``offsets[-1]`` are zero, as in the JAX package."""
     lengths = lengths.to(torch.int32)
     if validity is not None:
         lengths = torch.where(validity, lengths, torch.zeros_like(lengths))
@@ -57,7 +59,8 @@ def from_char_matrix(chars, lengths, validity=None, dtype=None) -> Column:
             torch.cumsum(lengths, 0, dtype=torch.int32),
         ]
     )
-    total = int(offsets[-1])
+    if total is None:
+        total = int(offsets[-1])
     data = ragged_pack(chars.clamp(min=0).to(torch.uint8), offsets[:-1], lengths, total)
     if dtype is not None:
         return Column(dtype, data, validity, offsets)

@@ -148,7 +148,7 @@ def _sorted_groups(table: Table, key_indices, mats):
     return perm, seg
 
 
-def _aggregate(table, key_indices, aggs, capacity, mats, perm, seg, num_groups):
+def _aggregate(table, key_indices, aggs, capacity, mats, perm, seg, num_groups, pad_payload=False):
     """The result table padded to ``capacity`` groups, and the occupied
     mask."""
     n = table.num_rows
@@ -164,7 +164,7 @@ def _aggregate(table, key_indices, aggs, capacity, mats, perm, seg, num_groups):
     rows0 = perm[starts.clamp(0, safe_n).long()]
     out_cols = []
     for ki in key_indices:
-        kc = gather_column(table.columns[ki], rows0)
+        kc = gather_column(table.columns[ki], rows0, mats.get(ki), pad_payload)
         if kc.dtype.kind == "float":
             # Spark normalizes float group keys: -0.0 -> 0.0, one NaN
             d = torch.where(kc.data == 0, torch.zeros_like(kc.data), kc.data)
@@ -285,18 +285,30 @@ def _empty_padded(table, key_indices, aggs, capacity):
 
 
 def group_by_padded(
-    table: Table, key_indices: Tuple[int, ...], aggs: Tuple[Agg, ...], capacity: int
+    table: Table,
+    key_indices: Tuple[int, ...],
+    aggs: Tuple[Agg, ...],
+    capacity: int,
+    key_mats=None,
+    pad_payload: bool = False,
 ):
     """Returns (result Table padded to ``capacity``, occupied bool
     [capacity], num_groups int32 scalar tensor). Groups beyond
     ``capacity`` are dropped; the first ``capacity`` groups in key order
-    stay exact."""
+    stay exact.
+
+    ``key_mats`` (column index -> (chars, lengths)) supplies the string
+    key columns' char matrices; without it each is built here (one host
+    sync for its width). ``pad_payload=True`` gives string key outputs a
+    payload of capacity x matrix width bytes instead of the exact size."""
     if table.num_rows == 0:
         return _empty_padded(table, key_indices, aggs, capacity)
-    mats = _string_key_matrices(table, key_indices)
+    mats = dict(key_mats) if key_mats is not None else _string_key_matrices(table, key_indices)
     perm, seg = _sorted_groups(table, key_indices, mats)
     num_groups = seg[-1] + 1
-    result, occupied = _aggregate(table, key_indices, aggs, capacity, mats, perm, seg, num_groups)
+    result, occupied = _aggregate(
+        table, key_indices, aggs, capacity, mats, perm, seg, num_groups, pad_payload
+    )
     return result, occupied, num_groups
 
 

@@ -52,6 +52,15 @@ def ragged_pack(
 ) -> torch.Tensor:
     """Flat ``[total]`` buffer of ``rows.dtype`` holding
     ``rows[i, :lengths[i]]`` at ``starts[i]``; bytes no span covers are
-    zero."""
-    out = torch.zeros((total,), dtype=rows.dtype, device=rows.device)
-    return ragged_scatter(out, rows, starts, lengths)
+    zero. Spans must lie inside ``[0, total)``. No host sync: positions
+    past a row's length write to one spare slot past the end, which is
+    cut off."""
+    n, L = rows.shape
+    out = torch.zeros((total + 1,), dtype=rows.dtype, device=rows.device)
+    if n and L:
+        pos = torch.arange(L, dtype=torch.int64, device=rows.device)[None, :]
+        dest = torch.where(
+            pos < lengths.to(torch.int64)[:, None], starts.to(torch.int64)[:, None] + pos, total
+        )
+        out[dest.reshape(-1)] = rows.reshape(-1)
+    return out[:total]

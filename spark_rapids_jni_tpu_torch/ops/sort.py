@@ -177,18 +177,34 @@ def sort_order(table: Table, keys: Sequence[SortKey], char_matrices=None) -> tor
     return stable_lex_order(operands)[0].to(torch.int32)
 
 
-def gather_column(col: Column, perm: torch.Tensor) -> Column:
-    """Row gather of one column; varlen columns repack their payload."""
-    if col.is_varlen:
-        return strs.take(col, perm)
+def gather_column(
+    col: Column, perm: torch.Tensor, char_matrix=None, pad_payload: bool = False
+) -> Column:
+    """Row gather of one column; varlen columns repack their payload.
+
+    A varlen column given a (chars, lengths) ``char_matrix`` gathers its
+    rows from the matrix, as the JAX package does (a matrix narrower
+    than a string truncates it); without one it reads the payload
+    directly (``strings.take``), the same bytes. ``pad_payload=True``
+    gives the payload a fixed capacity of rows x matrix width, with no
+    host sync for its size."""
     idx = perm.long()
     validity = None if col.validity is None else col.validity[idx]
+    if col.is_varlen:
+        if char_matrix is None and not pad_payload:
+            return strs.take(col, perm)
+        chars, lengths = char_matrix if char_matrix is not None else strs.to_char_matrix(col)
+        total = idx.shape[0] * chars.shape[1] if pad_payload else None
+        return strs.from_char_matrix(chars[idx], lengths[idx], validity, total, col.dtype)
     return Column(col.dtype, col.data[idx], validity)
 
 
-def gather(table: Table, perm: torch.Tensor) -> Table:
-    """Row gather of a whole table, column by column."""
-    return Table([gather_column(c, perm) for c in table.columns], table.names)
+def gather(table: Table, perm: torch.Tensor, char_matrices=None) -> Table:
+    """Row gather of a whole table, column by column; ``char_matrices``
+    (column index -> (chars, lengths)) feeds ``gather_column``."""
+    mats = char_matrices or {}
+    cols = [gather_column(c, perm, mats.get(i)) for i, c in enumerate(table.columns)]
+    return Table(cols, table.names)
 
 
 def _string_key_matrices(table: Table, columns) -> dict:

@@ -132,3 +132,31 @@ def test_q1_slice_module_imports_without_jax(module):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+# The modules of the join slice (TPC-H q5) and the host row codec, and
+# the attribute each must carry, imported the same way.
+Q5_SLICE_MODULES = [
+    ("spark_rapids_jni_tpu_torch.ops.join", "join_padded"),
+    ("spark_rapids_jni_tpu_torch.ops.row_conversion_host", "decode_rows"),
+    ("spark_rapids_jni_tpu_torch.kernels._build", "HOST_SOURCES"),
+    ("spark_rapids_jni_tpu_torch.api", "Join"),
+]
+
+
+@pytest.mark.parametrize("module,attr", Q5_SLICE_MODULES)
+def test_q5_slice_module_imports_without_jax(module, attr):
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    bad = [m for m in _imported_modules(path) if m and m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    blocker = "import sys\nfor name in %r:\n    sys.modules[name] = None\n" % (FORBIDDEN,)
+    code = blocker + (
+        f"import {module} as mod\n"
+        f"assert hasattr(mod, {attr!r})\n"
+        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in %r and sys.modules[m])\n"
+        "assert not loaded, loaded\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -1,10 +1,14 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py):
-carry a JAX-package Table into the port through the numpy interop form,
-compare tables and row batches exactly, run both row round trips. Not a
-test module."""
+carry tables between the JAX package and the port through the numpy
+interop form, compare tables and row batches exactly, run both row
+round trips. Not a test module."""
 
+import jax.numpy as jnp
 import numpy as np
 
+from spark_rapids_jni_tpu import Column as JColumn
+from spark_rapids_jni_tpu import Table as JTable
+from spark_rapids_jni_tpu.columnar.dtypes import DType as JDType
 from spark_rapids_jni_tpu.ops import row_conversion as jrc
 
 from spark_rapids_jni_tpu_torch.columnar import dtypes as pd
@@ -33,13 +37,32 @@ def to_port(tbl):
     return interop.table_from_numpy(numpy_form(tbl), device="cpu")
 
 
-def assert_same_table(jax_tbl, port_tbl):
-    """Exact equality of data, validity and offsets, column by column."""
+def jax_table(spec):
+    """A JAX-package Table from the interop numpy form."""
+    cols = []
+    for c in spec:
+        opt = [None if c[k] is None else jnp.asarray(c[k]) for k in ("validity", "offsets")]
+        cols.append(JColumn(JDType(*c["dtype"]), jnp.asarray(c["data"]), *opt))
+    return JTable(cols)
+
+
+def _rows(col):
+    return len(col["offsets"]) - 1 if col["offsets"] is not None else len(col["data"])
+
+
+def assert_same_table(jax_tbl, port_tbl, validity_or_true=False):
+    """Exact equality of data, validity and offsets, column by column.
+    ``validity_or_true=True`` compares validity as
+    ``Column.validity_or_true()`` does: no mask equals an all-true one."""
     want = numpy_form(jax_tbl)
     got = interop.table_to_numpy(port_tbl)
     assert len(want) == len(got)
     for i, (w, g) in enumerate(zip(want, got)):
         assert w["dtype"] == g["dtype"], i
+        if validity_or_true:
+            for c in (w, g):
+                if c["validity"] is None:
+                    c["validity"] = np.ones(_rows(c), bool)
         for key in ("data", "validity", "offsets"):
             if w[key] is None or g[key] is None:
                 assert w[key] is None and g[key] is None, (i, key)
