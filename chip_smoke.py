@@ -13,7 +13,8 @@ kernel -> JCUDF rows -> columns.
 Phases, each fatal on failure:
   1. device: a CUDA card must be present; prints its name and power limit
   2. build: compiles every kernel source of the port (one nvcc each) and
-     the host codec's C++ source, all at once
+     the host libraries (the JCUDF codec; the Parquet footer parser and
+     page decoder, whose zlib and zstd it probes), all at once
   3. kernel parity: the kernel against its plain PyTorch version on the
      card, exact, over a matrix of types, nulls, seeds and row counts;
      times both with CUDA events
@@ -46,7 +47,23 @@ Phases, each fatal on failure:
   10. the host JCUDF codec (native/jcudf_rows.cpp, built with the host
      compiler) over the 4 Mi-row batch of phase 4: byte-exact against the
      card's convertToRows, and its decode gives the columns back
-  11. one JSON line of kernel numbers, the card line, then the verdict
+  11. casts and JSON, card against CPU: a mixed 64 Ki-row batch of
+     integer, decimal and JSON strings (whitespace, signs, type bounds,
+     rounding, exponents, escapes, surrogate pairs, nested containers,
+     misses, malformed rows, nulls) through CastStrings.toInteger /
+     toDecimal and JSONUtils.getJsonObject on the card and on the CPU;
+     the results must be equal, and the ANSI casts must raise the same
+     CastException
+  12. the fourth path, store_sales at SF10 (BASELINE.md config 4 on one
+     card): 28,800,000 rows of benchmarks/sf10_store_sales.py's
+     generator written to a Parquet file (dictionary pages, snappy) in
+     14 row groups, read back through the port's ParquetReader (host
+     decode by native/parquet_pages.cpp, built with the host compiler)
+     and run through toInteger -> toDecimal -> get_json_object -> filter
+     -> group-by; every row group and the folded per-store totals exactly
+     equal to the oracle; end-to-end and device-chain rows/s, per-stage
+     ms, ops per row group, a profile and the peak device memory
+  13. one JSON line of kernel numbers, the card line, then the verdict
 
 Exits non-zero, printing no verdict, without a card or without the port
 beside it. Data is made from fixed seeds.
@@ -1085,6 +1102,589 @@ def host_codec(spec, rows, card):
           flush=True)
 
 
+# ---- casts, JSON and store_sales (BASELINE.md config 4) ----
+
+INT_CASES = [
+    "0", "-0", "+7", "  42 ", "\t-13\n", " 5", "5 ", "1.5", "-1.9", "7.", ".", "", " ", "+",
+    "-", "1e3", "12a", "a12", "1 2", "12é", "١٢", "--1", "+-1", "0x1F", "000000000000000000000012",
+    "127", "128", "-128", "-129", "32767", "32768", "-32768", "-32769",
+    "2147483647", "2147483648", "-2147483648", "-2147483649",
+    "9223372036854775807", "9223372036854775808", "-9223372036854775808",
+    "-9223372036854775809", "99999999999999999999", "  -00012.999  ",
+]
+DEC_CASES = [
+    "1.235", "1.234", "-1.235", "1.245", "0.005", "-0.005", "0.004", "1.2E+3", "-5e-3", "1e2",
+    "2.5e-1", ".5", "5.", "-.5", "+.25", "1e", "1e+", "e5", "1.2.3", "1,000", "12345678.9",
+    "1234567.891", "9999999.995", "9999999.994", "99999999999999999999.5", "1.5e10", "  3.14  ",
+    "3.14 x", "", " ", "0e0", "1E-40", "123456789012345678901234567890.12345", "-0.0000000001",
+    "0.00000000000000000000000000000000000000001", "12345678901234567890123456789012345678",
+    "1e37", "1e38", "-1e-10", "99999999999999.99995", "١.٥", "1é", "00001.50000",
+]
+JSON_DOCS = [
+    '{"channel": "web", "coupon": {"code": "C012"}, "promo": true, "items": [1, "two", {"k": [3, 4]}]}',
+    '{"promo":false,"channel":"store","items":[],"coupon":{"code":"C\\u00e9"}}',
+    '  { "channel" : "catalog" , "items" : [ 10 , 20 , [ 30 ] ] , "promo" : null }  ',
+    '{"channel": "w\\"eb", "coupon": {"code": "a\\\\b\\/c\\nd"}, "promo": "yes"}',
+    '{"channel": "\\ud83d\\ude00", "items": [{"a": 1}, {"b": [1, 2]}, "x"]}',
+    '{"channel": "\\u00e9t\\u00e9", "coupon": {"code": 7.5e2}, "items": [true, false]}',
+    '{"channel": "é", "coupon": null, "promo": {"pct": 10, "tags": ["a", "b"]}}',
+    '{"promo": 1, "channel": "dup1", "channel": "dup2", "items": [ "x" , "y" ]}',
+    '{"channel": "web"',
+    'not json',
+    '[1, 2, 3]',
+    '{"channel": web}',
+    '"just a string"',
+    '{"coupon": {"code": "C001", "extra": {"deep": [1, {"z": "\\t"}]}}, "channel": "store"}',
+    '{"items": [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11], '
+    '"channel": "web", "coupon": {"code": "LONGCODE-0123456789"}}',
+    '{"coupon": {"code": "C777", "note": "a long note, long enough to push the document past '
+    '128 bytes and so its char matrix to the next bucket"}, "channel": "catalog", "items": [0], '
+    '"memo": "and a top-level memo past 256 bytes, where the lane scans give way to the '
+    'torch scans"}',
+]
+JSON_PATHS = ["$.channel", "$.coupon.code", "$['promo']", "$.items[1]", "$.items[2]",
+              "$.coupon", "$.items", "$.missing", "$.items[9]", "$[1]"]
+CAST_DECIMALS = ((9, 2), (18, 4), (38, 10))
+
+
+def string_spec_from_list(values, rng=None, p_null=0.0):
+    """Interop form of a STRING column holding ``values`` (None: null),
+    a share ``p_null`` of rows nulled besides."""
+    valid = np.array([v is not None for v in values])
+    if p_null:
+        valid &= rng.random(len(values)) >= p_null
+    spec = string_column_spec(["" if v is None else v for v in values])
+    spec["validity"] = None if valid.all() else valid
+    return spec
+
+
+def cast_json_spec(n, seed=11):
+    """Three STRING columns in the interop form, ``n`` rows each, drawn
+    from the hand-made cases above and random values, with nulls:
+    0 integer strings, 1 decimal strings, 2 JSON documents (one longer
+    than 256 bytes, so the char matrix buckets to 512, past the width
+    ``segmented.LANE_SCAN_MAX_L`` where the lane scans give way to
+    torch's), 3 the same documents with every one longer than 64 bytes
+    replaced (bucket 64, the lane scans)."""
+    rng = np.random.default_rng(seed)
+    ws = np.array(["", " ", "  ", "\t", "\n", "\r"])
+
+    def pick(cases, random_values):
+        take = rng.random(n) < 0.5
+        case = np.array(cases, dtype=object)[rng.integers(0, len(cases), n)]
+        return [c if t else r for c, t, r in zip(case, take, random_values)]
+
+    ints = [f"{ws[a]}{v}{ws[b]}" for a, b, v in zip(
+        rng.integers(0, 6, n), rng.integers(0, 6, n), rng.integers(-(10**12), 10**12, n))]
+    mant = rng.integers(0, 10**12, n)
+    frac = rng.integers(0, 10**6, n)
+    exps = rng.integers(-12, 12, n)
+    decs = [
+        f"{'-' if s else ''}{m}.{f:06d}" + (f"e{e}" if k else "")
+        for s, m, f, e, k in zip(rng.random(n) < 0.5, mant % 10 ** rng.integers(1, 13, n), frac,
+                                 exps, rng.random(n) < 0.2)
+    ]
+    docs = [
+        f'{{"channel": "{c}", "coupon": {{"code": "C{k:03d}"}}, "promo": {p}}}'
+        for c, k, p in zip(np.array(["web", "store", "catalog"])[rng.integers(0, 3, n)],
+                           rng.integers(0, 1000, n),
+                           np.array(["true", "false"])[rng.integers(0, 2, n)])
+    ]
+    docs = pick(JSON_DOCS, docs)
+    short = [d if len(d.encode()) <= 64 else '{"channel": "store"}' for d in docs]
+    return [
+        string_spec_from_list(pick(INT_CASES, ints), rng, 0.05),
+        string_spec_from_list(pick(DEC_CASES, decs), rng, 0.05),
+        string_spec_from_list(docs, rng, 0.05),
+        string_spec_from_list(short, rng, 0.05),
+    ]
+
+
+def cast_json_ops(t):
+    """Every cast and JSON path of phase 11 over one device's table:
+    name -> Column."""
+    from spark_rapids_jni_tpu_torch.api import CastStrings, JSONUtils
+    from spark_rapids_jni_tpu_torch.columnar.dtypes import DType
+    from spark_rapids_jni_tpu_torch.ops.get_json_object import get_json_object
+
+    c = t.columns
+    out = {}
+    max_int = int(c[0].string_lengths().max())
+    for bits in (8, 16, 32, 64):
+        dt = DType("int", bits)
+        out[f"toInteger INT{bits}"] = CastStrings.toInteger(c[0], False, True, dt)
+    out["toInteger INT32 no strip"] = CastStrings.toInteger(c[0], False, False, DType("int", 32))
+    out[f"toInteger INT64 width {max_int}"] = CastStrings.toInteger(
+        c[0], False, True, DType("int", 64), width=max_int)
+    for p, s in CAST_DECIMALS:
+        out[f"toDecimal ({p},{s})"] = CastStrings.toDecimal(c[1], False, True, p, s)
+    out["toDecimal (9,2) no strip"] = CastStrings.toDecimal(c[1], False, False, 9, 2)
+    out["toDecimal (38,10) width 64"] = CastStrings.toDecimal(c[1], False, True, 38, 10, width=64)
+    for col, label in ((2, "bucket 512"), (3, "bucket 64")):
+        for path in JSON_PATHS:
+            out[f"getJsonObject {path} {label}"] = JSONUtils.getJsonObject(c[col], path)
+    out["get_json_object $.channel width 512 out_width 512"] = get_json_object(
+        c[2], "$.channel", width=512, out_width=512)
+    return out
+
+
+def ansi_errors(t):
+    """(row, string) of the CastException each ANSI-mode cast raises."""
+    from spark_rapids_jni_tpu_torch.api import CastStrings
+    from spark_rapids_jni_tpu_torch.columnar.dtypes import DType
+    from spark_rapids_jni_tpu_torch.runtime.errors import CastException
+
+    got = {}
+    for name, cast in (
+        ("toInteger INT32", lambda: CastStrings.toInteger(t.columns[0], True, True,
+                                                           DType("int", 32))),
+        ("toDecimal (9,2)", lambda: CastStrings.toDecimal(t.columns[1], True, True, 9, 2)),
+    ):
+        try:
+            cast()
+        except CastException as e:
+            got[name] = (e.row_with_error, e.string_with_error)
+        else:
+            raise AssertionError(f"ANSI {name} raised no CastException")
+    return got
+
+
+def cast_json_card_vs_cpu(n):
+    """Phase 11: the casts and get_json_object on the card and on the CPU
+    over one mixed batch; data, string bytes, offsets and validity (as
+    ``validity_or_true()``) must be equal, and the ANSI casts must raise
+    the same CastException."""
+    from spark_rapids_jni_tpu_torch.columnar.interop import table_from_numpy
+
+    spec = cast_json_spec(n)
+    t0 = time.perf_counter()
+    results, errors = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = table_from_numpy(spec, device=dev)
+        res = cast_json_ops(t)
+        results[dev] = {
+            k: (c.data.cpu().numpy(), c.validity_or_true().cpu().numpy(),
+                None if c.offsets is None else c.offsets.cpu().numpy(), c.dtype)
+            for k, c in res.items()
+        }
+        errors[dev] = ansi_errors(t)
+    nulls = {}
+    for name, want in results["cpu"].items():
+        got = results["cuda"][name]
+        if got[3] != want[3]:
+            raise AssertionError(f"cast/json card vs cpu [{name}]: dtype {got[3]} != {want[3]}")
+        for i, key in enumerate(("data", "validity", "offsets")):
+            if not same_array(got[i], want[i]):
+                raise AssertionError(f"cast/json card vs cpu [{name}]: {key} differs")
+        nulls[name] = int((~want[1]).sum())
+    if errors["cuda"] != errors["cpu"]:
+        raise AssertionError(f"ANSI errors differ: card {errors['cuda']}, cpu {errors['cpu']}")
+    print(f"cast/json card vs cpu: {len(nulls)} results exact at {n} rows in "
+          f"{time.perf_counter() - t0:.1f} s; ANSI errors equal {json.dumps(errors['cpu'])}; "
+          f"null rows {json.dumps(nulls)}", flush=True)
+
+
+# ---- store_sales at SF10 (benchmarks/sf10_store_sales.py) ----
+
+SS_ROWS = 28_800_000  # SF10 store_sales
+SS_RG = 1 << 21  # 2 Mi-row row groups
+SS_STORES = 64  # ss_store_sk drawn from [1, 64)
+SS_CHANNELS = ("web", "store", "catalog")
+SS_WIDTHS = (8, 8, 48)  # the benchmark's CAPS for columns 1-3
+SS_STAGES = ("decode", "h2d", "cast_integer", "cast_decimal", "get_json_object", "filter",
+             "group_by")
+
+
+def ss_gen_chunk(n, seed):
+    """One row group of sf10_store_sales.py's gen_chunk (:92-108): the
+    same generator, seed and order of draws."""
+    rng = np.random.default_rng(seed)
+    store = rng.integers(1, SS_STORES, n).astype(np.int32)
+    qty_i = rng.integers(1, 100, n)
+    price_u = rng.integers(1, 500, n)
+    price_f = rng.integers(0, 100, n)
+    chan = rng.integers(0, 3, n)
+    return {"store": store, "qty_i": qty_i, "price_u": price_u, "price_f": price_f,
+            "chan": chan, "cents": price_u * 100 + price_f}
+
+
+def ss_oracle(g):
+    """Per-store [sum(cents), count] over the web rows of one generated
+    chunk (sf10_store_sales.py:132-141): {store: (cents, count)}."""
+    web = g["chan"] == 0
+    s = g["store"][web]
+    cents = np.bincount(s, weights=g["cents"][web], minlength=SS_STORES)
+    counts = np.bincount(s, minlength=SS_STORES)
+    return {k: (int(cents[k]), int(counts[k])) for k in np.flatnonzero(counts)}
+
+
+# -- a minimal Parquet writer (thrift compact footer, dictionary pages,
+# RLE_DICTIONARY v1 data pages, literal-only snappy), for test data --
+
+_T_I32, _T_I64, _T_BINARY, _T_LIST, _T_STRUCT = 5, 6, 8, 9, 12
+
+
+def _uvarint(v):
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _zz(v):
+    return (v << 1) ^ (v >> 63)
+
+
+def _tval(ttype, v):
+    if ttype in (_T_I32, _T_I64):
+        return _uvarint(_zz(v))
+    if ttype == _T_BINARY:
+        b = v.encode() if isinstance(v, str) else v
+        return _uvarint(len(b)) + b
+    return v  # an encoded struct or list
+
+
+def _tstruct(fields):
+    """Thrift compact struct of (field id, type, value), ids ascending."""
+    out, last = bytearray(), 0
+    for fid, ttype, v in fields:
+        delta = fid - last
+        out += bytes([(delta << 4) | ttype]) if 0 < delta <= 15 else (
+            bytes([ttype]) + _uvarint(_zz(fid)))
+        out += _tval(ttype, v)
+        last = fid
+    return bytes(out + b"\0")
+
+
+def _tlist(etype, values):
+    n = len(values)
+    head = bytes([(n << 4) | etype]) if n < 15 else bytes([0xF0 | etype]) + _uvarint(n)
+    return head + b"".join(_tval(etype, v) for v in values)
+
+
+def snappy_literal(payload):
+    """A raw snappy block of one literal element."""
+    n = len(payload)
+    if n == 0:
+        return _uvarint(0)
+    if n <= 60:
+        tag = bytes([(n - 1) << 2])
+    else:
+        tag = bytes([63 << 2]) + (n - 1).to_bytes(4, "little")
+    return _uvarint(n) + tag + payload
+
+
+def rle_bitpacked(indices, bit_width):
+    """One bit-packed run of the RLE/bit-packed hybrid."""
+    groups = -(-len(indices) // 8)
+    pad = np.zeros(groups * 8, "<u4")
+    pad[: len(indices)] = indices
+    bits = np.unpackbits(pad.view(np.uint8).reshape(-1, 4), axis=1, bitorder="little")
+    return _uvarint((groups << 1) | 1) + np.packbits(
+        bits[:, :bit_width].reshape(-1), bitorder="little").tobytes()
+
+
+class ParquetWriter:
+    """Writes REQUIRED INT32 and UTF8 BYTE_ARRAY columns as pyarrow's
+    defaults do for this schema: per column chunk a PLAIN dictionary page
+    then v1 data pages of RLE_DICTIONARY indices, SNAPPY pages (literal
+    runs) and a thrift-compact footer."""
+
+    PAGE_ROWS = 1 << 17
+
+    def __init__(self, path, schema):
+        self.f = open(path, "wb")
+        self.f.write(b"PAR1")
+        self.schema = schema  # [(name, "int32" | "string")]
+        self.row_groups = []
+        self.num_rows = 0
+
+    def _page(self, header, payload):
+        comp = snappy_literal(payload)
+        head = _tstruct([(1, _T_I32, header[0]), (2, _T_I32, len(payload)),
+                         (3, _T_I32, len(comp)), header[1]])
+        self.f.write(head + comp)
+        return len(head) + len(payload), len(head) + len(comp)
+
+    def _chunk(self, name, kind, dictionary, indices):
+        start = self.f.tell()
+        if kind == "int32":
+            plain = np.asarray(dictionary, "<i4").tobytes()
+        else:
+            plain = b"".join(len(b).to_bytes(4, "little") + b for b in dictionary)
+        unc, comp = self._page((2, (7, _T_STRUCT, _tstruct(
+            [(1, _T_I32, len(dictionary)), (2, _T_I32, 0)]))), plain)
+        data_off = self.f.tell()
+        bw = max(int(len(dictionary) - 1).bit_length(), 1)
+        for lo in range(0, len(indices), self.PAGE_ROWS):
+            part = indices[lo:lo + self.PAGE_ROWS]
+            u, c = self._page((0, (5, _T_STRUCT, _tstruct(
+                [(1, _T_I32, len(part)), (2, _T_I32, 8), (3, _T_I32, 3), (4, _T_I32, 3)]))),
+                bytes([bw]) + rle_bitpacked(part, bw))
+            unc, comp = unc + u, comp + c
+        meta = _tstruct([
+            (1, _T_I32, 1 if kind == "int32" else 6),
+            (2, _T_LIST, _tlist(_T_I32, [0, 3, 8])),
+            (3, _T_LIST, _tlist(_T_BINARY, [name])),
+            (4, _T_I32, 1),  # SNAPPY
+            (5, _T_I64, len(indices)),
+            (6, _T_I64, unc),
+            (7, _T_I64, comp),
+            (9, _T_I64, data_off),
+            (11, _T_I64, start),
+        ])
+        return _tstruct([(2, _T_I64, start), (3, _T_STRUCT, meta)]), start, comp, unc
+
+    def write_row_group(self, columns, n):
+        """``columns``: per schema column (dictionary values, int32 [n]
+        indices); string dictionaries are lists of bytes."""
+        chunks = [self._chunk(name, kind, d, idx)
+                  for (name, kind), (d, idx) in zip(self.schema, columns)]
+        self.row_groups.append(_tstruct([
+            (1, _T_LIST, _tlist(_T_STRUCT, [c[0] for c in chunks])),
+            (2, _T_I64, sum(c[3] for c in chunks)),
+            (3, _T_I64, n),
+            (5, _T_I64, chunks[0][1]),
+            (6, _T_I64, sum(c[2] for c in chunks)),
+        ]))
+        self.num_rows += n
+
+    def close(self):
+        schema = [_tstruct([(4, _T_BINARY, "schema"), (5, _T_I32, len(self.schema))])]
+        for name, kind in self.schema:
+            fields = [(1, _T_I32, 1 if kind == "int32" else 6), (3, _T_I32, 0),
+                      (4, _T_BINARY, name)]
+            if kind == "string":
+                fields.append((6, _T_I32, 0))  # UTF8
+            schema.append(_tstruct(fields))
+        footer = _tstruct([
+            (1, _T_I32, 1),
+            (2, _T_LIST, _tlist(_T_STRUCT, schema)),
+            (3, _T_I64, self.num_rows),
+            (4, _T_LIST, _tlist(_T_STRUCT, self.row_groups)),
+            (6, _T_BINARY, "spark_rapids_jni_tpu_torch chip_smoke"),
+        ])
+        self.f.write(footer + len(footer).to_bytes(4, "little") + b"PAR1")
+        self.f.close()
+
+
+SS_SCHEMA = [("ss_store_sk", "int32"), ("ss_quantity_str", "string"),
+             ("ss_sales_price_str", "string"), ("ss_attrs_json", "string")]
+
+
+def dense_dictionary(keys):
+    """(distinct keys ascending, int32 index of each row's key) of
+    small non-negative integer keys."""
+    present = np.zeros(int(keys.max()) + 1, bool)
+    present[keys] = True
+    remap = np.cumsum(present, dtype=np.int32) - 1
+    return np.flatnonzero(present), remap[keys]
+
+
+def ss_dictionary_columns(g):
+    """The four columns of one generated chunk as (dictionary, indices):
+    each string dictionary is built from its distinct keys with the same
+    formatter as sf10_store_sales.py builds the rows."""
+    keys, idx = dense_dictionary(g["store"])
+    out = [(keys.astype(np.int32), idx)]
+    for key, fmt in (
+        (g["qty_i"], lambda k: [f"  {v} ".encode() for v in k]),
+        (g["cents"], lambda k: [f"{v // 100}.{v % 100:02d}".encode() for v in k]),
+        (g["chan"], lambda k: [f'{{"promo": false, "channel": "{SS_CHANNELS[v]}"}}'.encode()
+                               for v in k]),
+    ):
+        keys, idx = dense_dictionary(key)
+        out.append((fmt(keys.tolist()), idx))
+    return out
+
+
+def write_store_sales(path, rows, rg_rows):
+    """Generate store_sales row group by row group (seeds 1000 + g) into
+    a Parquet file; returns the per-row-group oracles."""
+    w = ParquetWriter(path, SS_SCHEMA)
+    oracles = []
+    for g, lo in enumerate(range(0, rows, rg_rows)):
+        n = min(rg_rows, rows - lo)
+        chunk = ss_gen_chunk(n, 1000 + g)
+        w.write_row_group(ss_dictionary_columns(chunk), n)
+        oracles.append(ss_oracle(chunk))
+    w.close()
+    return oracles
+
+
+def ss_chain(t, tick=None):
+    """The eager store_sales query of sf10_store_sales.py:146-164 over one
+    row group through the port's façade: casts, get_json_object, filter
+    channel == "web" with a valid price, group by store: sum and count
+    of the price."""
+    from spark_rapids_jni_tpu_torch import INT32, Table
+    from spark_rapids_jni_tpu_torch.api import Aggregation, CastStrings, Filter, JSONUtils
+
+    tick = tick or (lambda stage: None)
+    c = t.columns
+    qty = CastStrings.toInteger(c[1], False, True, INT32, width=SS_WIDTHS[0])
+    tick("cast_integer")
+    price = CastStrings.toDecimal(c[2], False, True, 9, 2, width=SS_WIDTHS[1])
+    tick("cast_decimal")
+    channel = JSONUtils.getJsonObject(c[3], "$.channel", width=SS_WIDTHS[2])
+    tick("get_json_object")
+    keep = string_equals(channel, "web") & price.validity_or_true()
+    web = Filter.apply(Table([c[0], qty, price, channel]), keep)
+    tick("filter")
+    Agg = Aggregation.Agg
+    out = Aggregation.groupBy(web, [0], [Agg("sum", 2), Agg("count", 2)])
+    tick("group_by")
+    return out
+
+
+def ss_result(res):
+    """{store: (sum of cents, count)} of one row group's result."""
+    keys, sums, counts = res.to_pylists()
+    return {int(k): (int(s or 0), int(c)) for k, s, c in zip(keys, sums, counts)
+            if k is not None}
+
+
+def ss_fold(total, part):
+    for k, (s, c) in part.items():
+        a = total.setdefault(k, [0, 0])
+        a[0] += s
+        a[1] += c
+
+
+def scan_forms(elems=SS_RG * SS_WIDTHS[2], widths=(48, 256, 512, 1024)):
+    """CUDA-event ms of the lane-scan forms over about ``elems`` int32
+    elements at each width L (rows = elems // L; L = 48 is
+    get_json_object's shape in store_sales): the port's shifted-max
+    scan in its narrow dtype and in int32 against torch.cummax, and the
+    prefix count as a triangular product against torch.cumsum (the two
+    forms ``segmented.lane_count`` chooses between by width). The
+    values must agree."""
+    from spark_rapids_jni_tpu_torch.ops import _json_scans, segmented
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for L in widths:
+        n = elems // L
+        x = torch.randint(-1, L, (n, L), dtype=torch.int32, device="cuda", generator=g)
+        xn = x.to(_json_scans.narrow_dtype(-1, L))
+        flags = x > L // 2
+        if not torch.equal(_json_scans.lane_cummax(xn).to(torch.int32), torch.cummax(x, 1).values):
+            raise AssertionError(f"lane_cummax differs from torch.cummax at L={L}")
+        want = torch.cumsum(flags, 1, dtype=torch.int32)
+        if not (torch.equal(segmented.count_product(flags), want)
+                and torch.equal(segmented.lane_count(flags), want)):
+            raise AssertionError(f"lane counts differ from torch.cumsum at L={L}")
+        out[f"[{n}, {L}]"] = {
+            f"lane_cummax {xn.dtype}".replace("torch.", ""): time_ms(
+                lambda: _json_scans.lane_cummax(xn), 10),
+            "lane_cummax int32": time_ms(lambda: _json_scans.lane_cummax(x), 10),
+            "torch.cummax int32": time_ms(lambda: torch.cummax(x, 1), 10),
+            "count_product": time_ms(lambda: segmented.count_product(flags), 10),
+            "torch.cumsum int32": time_ms(lambda: torch.cumsum(flags, 1, dtype=torch.int32), 10),
+        }
+        del x, xn, flags, want
+    print(f"lane scans, CUDA-event ms (mean of 10): {json.dumps(out)}", flush=True)
+
+
+def store_sales_sf10(counters, card, rows=SS_ROWS, rg_rows=SS_RG):
+    """Phase 12: store_sales at SF10 written to a Parquet file, read back
+    through the port's reader and run through the query, every row group
+    and the folded totals exactly equal to the oracle; end-to-end and
+    device-chain rows/s, per-stage ms, ops, a profile, peak memory."""
+    import shutil
+    import tempfile
+
+    from spark_rapids_jni_tpu_torch.api import ParquetReader
+    from spark_rapids_jni_tpu_torch.columnar.interop import table_from_numpy
+    from spark_rapids_jni_tpu_torch.kernels import _build
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="store_sales-", dir=os.path.join(ROOT, "build"))
+    try:
+        path = os.path.join(tmp, "store_sales.parquet")
+        t0 = time.perf_counter()
+        oracles = write_store_sales(path, rows, rg_rows)
+        print(f"store_sales data: {rows} rows in {len(oracles)} row groups written in "
+              f"{time.perf_counter() - t0:.1f} s, {os.path.getsize(path)} bytes; host "
+              f"libraries: {_build.describe_host_libraries()}", flush=True)
+        want_total = {}
+        for o in oracles:
+            ss_fold(want_total, o)
+
+        with ParquetReader(path) as r:  # warm-up: one row group, outside the clock
+            ss_chain(r.read_row_group(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for name in counters:
+            counters[name].launches = 0
+        stage_ms = {s: [] for s in SS_STAGES}
+        last = [0.0]
+
+        def tick(stage):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stage_ms[stage].append((now - last[0]) * 1e3)
+            last[0] = now
+
+        resident, got_total = [], {}
+        start = last[0] = time.perf_counter()
+        with ParquetReader(path) as r:
+            for rg in range(r.num_row_groups):
+                specs = r.read_row_group_host(rg)
+                tick("decode")
+                t = table_from_numpy(specs, "cuda")
+                tick("h2d")
+                part = ss_result(ss_chain(t, tick))
+                if part != oracles[rg]:
+                    raise AssertionError(f"store_sales row group {rg} differs from the oracle")
+                ss_fold(got_total, part)
+                resident.append(t)
+        e2e_s = time.perf_counter() - start
+        launches = {name: c.launches for name, c in counters.items()}
+        if got_total != want_total:
+            raise AssertionError("store_sales folded totals differ from the oracle")
+        resident_bytes = sum(
+            c.data.numel() * c.data.element_size()
+            + (0 if c.offsets is None else 4 * c.offsets.numel())
+            for t in resident for c in t.columns)
+
+        torch.cuda.synchronize()
+        chain_total = {}
+        t0 = time.perf_counter()
+        for t in resident:
+            ss_fold(chain_total, ss_result(ss_chain(t)))
+        chain_s = time.perf_counter() - t0
+        if chain_total != want_total:
+            raise AssertionError("store_sales device-chain totals differ from the oracle")
+
+        med = {s: float(np.median(v)) for s, v in stage_ms.items()}
+        print(f"store_sales sf10: {len(resident)} row groups and the folded totals exact "
+              f"against the oracle ({len(want_total)} stores); kernel launches on the "
+              f"store_sales path {json.dumps(launches)}")
+        print(f"store_sales sf10 per-row-group ms (median over row groups): {json.dumps(med)}")
+        print(f"store_sales SF10 rows/s end to end: {rows / e2e_s:.4g} ({rows} rows in "
+              f"{e2e_s * 1e3:.1f} ms, file open to last fold, decode and copy included)")
+        print(f"store_sales SF10 device-chain rows/s: {rows / chain_s:.4g} ({rows} rows in "
+              f"{chain_s * 1e3:.1f} ms over {resident_bytes} bytes resident on the card)")
+        t0 = resident[0]
+        print(f"store_sales torch ops dispatched per row group: "
+              f"{json.dumps(op_counts(lambda tick: ss_chain(t0, tick)))}")
+        profile_stage(f"store_sales row group ({t0.num_rows} rows)", lambda: ss_chain(t0),
+                      top=10)
+        print(f"store_sales sf10 peak device memory: {torch.cuda.max_memory_allocated()} "
+              f"bytes; card: {card}", flush=True)
+        del resident
+        scan_forms()
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     phase_t = [time.perf_counter()]
 
@@ -1111,7 +1711,8 @@ def main() -> int:
     sources = _build.kernel_sources() + sorted(_build.HOST_SOURCES)
     t0 = time.perf_counter()
     logs = _build.build(*sources)
-    print(f"build: {sources} in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"build: {sources} in {time.perf_counter() - t0:.2f} s; host libraries: "
+          f"{_build.describe_host_libraries()}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1255,7 +1856,17 @@ def main() -> int:
     host_codec(spec, rows, card)
     phase_done("10 host codec")
 
-    # ---- 11. kernel numbers, card, verdict
+    # ---- 11. casts and get_json_object, card against CPU, exact
+    cast_json_card_vs_cpu(N_MIXED)
+    phase_done("11 cast/json card vs cpu")
+
+    # ---- 12. store_sales at SF10 through Parquet, counted
+    ss_launches = store_sales_sf10({"murmur3_chain": murmur3}, card)
+    if ss_launches["murmur3_chain"] != 0:
+        raise AssertionError("the store_sales path launched the murmur3 kernel")
+    phase_done("12 store_sales sf10")
+
+    # ---- 13. kernel numbers, card, verdict
     k = timings["keys"]
     print(json.dumps({"kernels": [{
         "name": "murmur3_chain",

@@ -13,6 +13,13 @@ Layer map of the ported slices:
   api.SortOrder, Aggregation,     ORDER BY, GROUP BY, WHERE (ops/sort,
     Filter                          ops/aggregate, ops/filter, ops/segmented)
   api.Join                        equi-joins (ops/join)
+  api.CastStrings                 string -> integer / decimal (ops/cast_string)
+  api.JSONUtils                   get_json_object (ops/get_json_object,
+                                    ops/_json_scans)
+  api.ParquetFooter, ParquetReader,
+    read_table                    Parquet ingress over native/parquet_*.cpp
+                                    (ops/parquet_footer, ops/parquet_reader,
+                                    runtime/native)
   ops/row_conversion_host         host JCUDF codec over native/jcudf_rows.cpp
   parallel/spark_hash             Spark HashPartitioning placement
   kernels/murmur3 + csrc/         the hand-written Hopper Murmur3 kernel
@@ -39,8 +46,20 @@ from .columnar.dtypes import (
 from .columnar.column import Column
 from .columnar.table import Table
 from .columnar.interop import table_from_numpy, table_to_numpy
-from . import api, kernels, ops, parallel, utils  # noqa: F401
-from .api import Aggregation, DecimalUtils, Filter, Join, RowConversion, SortOrder
+from . import api, kernels, ops, parallel, runtime, utils  # noqa: F401
+from .api import (
+    Aggregation,
+    CastStrings,
+    DecimalUtils,
+    Filter,
+    Join,
+    JSONUtils,
+    ParquetFooter,
+    ParquetReader,
+    RowConversion,
+    SortOrder,
+    read_table,
+)
 
 __version__ = "0.1.0"
 
@@ -65,9 +84,14 @@ __all__ = [
     "table_from_numpy",
     "table_to_numpy",
     "Aggregation",
+    "CastStrings",
     "DecimalUtils",
     "Filter",
     "Join",
+    "JSONUtils",
+    "ParquetFooter",
+    "ParquetReader",
     "RowConversion",
     "SortOrder",
+    "read_table",
 ]

@@ -64,3 +64,18 @@ def ragged_pack(
         )
         out[dest.reshape(-1)] = rows.reshape(-1)
     return out[:total]
+
+
+def lane_select(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``mat[i, idx[i]]`` for idx in [0, L) (0 for out-of-range idx).
+
+    The JAX package takes a masked one-lane reduce, since a per-row
+    gather is slow on the TPU; on the card a gather is the direct form
+    and gives the same values."""
+    L = mat.shape[-1]
+    if L == 0:
+        return torch.zeros(mat.shape[:-1], dtype=mat.dtype, device=mat.device)
+    idx = idx.to(torch.int64)
+    inside = (idx >= 0) & (idx < L)
+    got = torch.gather(mat, -1, idx.clamp(0, L - 1)[:, None])[:, 0]
+    return torch.where(inside, got, torch.zeros((), dtype=mat.dtype, device=mat.device))

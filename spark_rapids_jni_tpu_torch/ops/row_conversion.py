@@ -292,7 +292,11 @@ def _from_rows_single(rc: Column, schema: tuple, layout: RowLayout) -> Table:
 
 
 def _concat_col(cs: List[Column]) -> Column:
-    validity = torch.cat([c.validity for c in cs])  # from_rows masks are explicit
+    """Concatenate the parts of one column: a mask only when some part
+    has one (the others count as all valid), offsets rebased."""
+    validity = None
+    if any(c.validity is not None for c in cs):
+        validity = torch.cat([c.validity_or_true() for c in cs])
     if not cs[0].is_varlen:
         return Column(cs[0].dtype, torch.cat([c.data for c in cs]), validity)
     offs, base = [cs[0].offsets[:1]], 0

@@ -32,6 +32,31 @@ def hs_cumsum(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return torch.cumsum(x, dim=axis, dtype=x.dtype)
 
 
+# Widest L at which the lane-scan forms beat torch's scans on the card:
+# at [393216, 256] the product counts in 1.74 ms against cumsum's 2.50,
+# at [196608, 512] in 2.75 against 0.70 (chip_smoke.scan_forms, PERF.md).
+LANE_SCAN_MAX_L = 256
+
+
+def count_product(flags: torch.Tensor) -> torch.Tensor:
+    """``lane_count`` as one float32 product with a triangular ones
+    matrix: every input and partial sum is a small integer, exact in
+    float32 (TF32 included)."""
+    L = flags.shape[1]
+    ones = torch.ones((L, L), dtype=torch.float32, device=flags.device).triu_()
+    return torch.matmul(flags.to(torch.float32), ones).to(torch.int32)
+
+
+def lane_count(flags: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 prefix sum along axis 1 of ``flags [n, L]`` with
+    values in {-1, 0, 1} (bool or integer): ``count_product`` up to
+    ``LANE_SCAN_MAX_L``, where torch's innermost-dimension integer
+    cumsum is slower (about 10x at ``[2 Mi, 48]``), torch.cumsum above."""
+    if flags.shape[1] <= LANE_SCAN_MAX_L:
+        return count_product(flags)
+    return torch.cumsum(flags.to(torch.int32), dim=1, dtype=torch.int32)
+
+
 def seg_ids_from_boundary(boundary: torch.Tensor) -> torch.Tensor:
     """bool [n] run-start flags -> int32 [n] nondecreasing segment ids
     starting at 0 (boundary[0] must be True for nonempty input)."""

@@ -1,0 +1,44 @@
+"""Error types of the ANSI-mode and bounded-width operators (the port's
+copy of the JAX package's ``runtime/errors.py``).
+
+``CastException`` carries the offending string and row number, as the
+reference's CastException does across the JNI boundary
+(CastException.java, CastStringJni.cpp CATCH_CAST_EXCEPTION), so a
+caller can report exactly which input row failed a strict-mode cast.
+"""
+
+from __future__ import annotations
+
+
+class CastException(RuntimeError):
+    def __init__(self, string_with_error: str, row_with_error: int):
+        super().__init__(
+            f"Error casting data on row {row_with_error}: {string_with_error!r}"
+        )
+        self.string_with_error = string_with_error
+        self.row_with_error = row_with_error
+
+
+class CapacityExceededError(ValueError):
+    """A bounded contract (a pinned string width, a group or join
+    capacity) would drop or truncate rows.
+
+    - ``stage``: which bounded contract tripped (e.g. "string_width").
+    - ``needed`` / ``granted``: the exact requirement when known;
+      ``needed`` is None when only an overflow count is known.
+    - ``breakdown``: per-stage overflow counts, when known.
+    """
+
+    def __init__(
+        self,
+        message: str,
+        stage: "str | None" = None,
+        needed: "int | None" = None,
+        granted: "int | None" = None,
+        breakdown: "dict | None" = None,
+    ):
+        super().__init__(message)
+        self.stage = stage
+        self.needed = needed
+        self.granted = granted
+        self.breakdown = breakdown

@@ -160,3 +160,40 @@ def test_q5_slice_module_imports_without_jax(module, attr):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+# The modules of the store_sales slice (Parquet ingress, casts, JSON),
+# imported the same way.
+STORE_SALES_SLICE_MODULES = [
+    ("spark_rapids_jni_tpu_torch.runtime.native", "load"),
+    ("spark_rapids_jni_tpu_torch.runtime.errors", "CastException"),
+    ("spark_rapids_jni_tpu_torch.ops.parquet_footer", "ParquetFooter"),
+    ("spark_rapids_jni_tpu_torch.ops.parquet_reader", "ParquetReader"),
+    ("spark_rapids_jni_tpu_torch.ops.cast_string", "string_to_decimal"),
+    ("spark_rapids_jni_tpu_torch.ops._json_scans", "structure"),
+    ("spark_rapids_jni_tpu_torch.ops.get_json_object", "get_json_object"),
+    ("spark_rapids_jni_tpu_torch.api", "JSONUtils"),
+]
+
+
+@pytest.mark.parametrize("module,attr", STORE_SALES_SLICE_MODULES)
+def test_store_sales_slice_module_imports_without_jax(module, attr):
+    test_q5_slice_module_imports_without_jax(module, attr)
+
+
+def test_read_table_default_device_is_cuda(tmp_path):
+    """``read_table`` lands on the card by default; without one it raises
+    before decoding instead of reading onto the CPU."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    from spark_rapids_jni_tpu_torch.api import read_table
+
+    path = str(tmp_path / "t.parquet")
+    chip_smoke.write_store_sales(path, 100, 64)
+    if torch.cuda.is_available():
+        assert read_table(path).columns[0].data.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        read_table(path)
+    assert read_table(path, device="cpu").num_rows == 100
