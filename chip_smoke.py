@@ -63,7 +63,30 @@ Phases, each fatal on failure:
      -> group-by; every row group and the folded per-store totals exactly
      equal to the oracle; end-to-end and device-chain rows/s, per-stage
      ms, ops per row group, a profile and the peak device memory
-  13. one JSON line of kernel numbers, the card line, then the verdict
+  13. float casts and from_json, card against CPU: a mixed 64 Ki-row batch
+     of float strings (every quirk of the reference's parser: nan/inf
+     forms, f/d suffixes, the 4-digit exponent cap, 19-25 digit
+     mantissas above 2^63, subnormals, whitespace, signs, nulls) through
+     CastStrings.toFloat (FLOAT32, FLOAT64) and of JSON objects (escapes,
+     surrogate pairs, nested values, every scalar kind, empty objects,
+     duplicate keys, nulls) through MapUtils.extractRawMapFromJsonString
+     under both scan strategies; the results must be equal, and the ANSI
+     cast and a malformed document must raise the same row
+  14. the reference's string->float axis (cast_string_to_float nvbench,
+     FLOAT32 at 1 Mi and 100 Mi rows): benchmarks/suites.py-shaped
+     strings, the 100 Mi-row column resident on the card and cast in
+     16 Mi-row chunks, every row exact against a host oracle; rows/s,
+     per-chunk ms, ops, a profile and the peak device memory
+  15. from_json over SF10 store_sales: extractRawMapFromJsonString over
+     ss_attrs_json of phase 12's file (28,800,000 rows, the reader's
+     footer pruned to that column), every row group exact against the
+     generator; rows/s, per-row-group ms, ops, a profile, peak memory
+  16. nested Parquet: one 2 Mi-row row group of LIST<INT32>,
+     STRUCT<INT64, STRING> and MAP<STRING, STRING> (nulls and empties at
+     every level; definition and repetition levels) read on the card and
+     on the CPU, both exact against the generator; decode and h2d ms
+  17. one JSON line of kernel numbers (with murmur3's launches on every
+     path: 1 on rung 1, 0 on the others), the card line, then the verdict
 
 Exits non-zero, printing no verdict, without a card or without the port
 beside it. Data is made from fixed seeds.
@@ -71,8 +94,10 @@ beside it. Data is made from fixed seeds.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -679,6 +704,7 @@ def q1_sf10(counters, card):
     profile_stage("q1 batch (4 Mi rows)", lambda: q1_run(tables[0]), top=10)
     print(f"q1 sf10 peak device memory: {torch.cuda.max_memory_allocated()} bytes "
           f"(batches resident: {data_bytes}); card: {card}", flush=True)
+    return launches
 
 
 HOWS = ("inner", "left", "right", "full", "left_semi", "left_anti")
@@ -1069,6 +1095,7 @@ def q5_sf10(counters, card):
                   top=10)
     print(f"q5 sf10 peak device memory: {torch.cuda.max_memory_allocated()} bytes "
           f"(tables resident: {data_bytes}); card: {card}", flush=True)
+    return launches
 
 
 def host_codec(spec, rows, card):
@@ -1205,6 +1232,7 @@ def cast_json_ops(t):
     name -> Column."""
     from spark_rapids_jni_tpu_torch.api import CastStrings, JSONUtils
     from spark_rapids_jni_tpu_torch.columnar.dtypes import DType
+    from spark_rapids_jni_tpu_torch.ops.cast_string import string_to_decimal, string_to_integer
     from spark_rapids_jni_tpu_torch.ops.get_json_object import get_json_object
 
     c = t.columns
@@ -1214,12 +1242,12 @@ def cast_json_ops(t):
         dt = DType("int", bits)
         out[f"toInteger INT{bits}"] = CastStrings.toInteger(c[0], False, True, dt)
     out["toInteger INT32 no strip"] = CastStrings.toInteger(c[0], False, False, DType("int", 32))
-    out[f"toInteger INT64 width {max_int}"] = CastStrings.toInteger(
-        c[0], False, True, DType("int", 64), width=max_int)
+    out[f"toInteger INT64 width {max_int}"] = string_to_integer(
+        c[0], DType("int", 64), strip=True, width=max_int)
     for p, s in CAST_DECIMALS:
         out[f"toDecimal ({p},{s})"] = CastStrings.toDecimal(c[1], False, True, p, s)
     out["toDecimal (9,2) no strip"] = CastStrings.toDecimal(c[1], False, False, 9, 2)
-    out["toDecimal (38,10) width 64"] = CastStrings.toDecimal(c[1], False, True, 38, 10, width=64)
+    out["toDecimal (38,10) width 64"] = string_to_decimal(c[1], 38, 10, strip=True, width=64)
     for col, label in ((2, "bucket 512"), (3, "bucket 64")):
         for path in JSON_PATHS:
             out[f"getJsonObject {path} {label}"] = JSONUtils.getJsonObject(c[col], path)
@@ -1523,15 +1551,17 @@ def ss_chain(t, tick=None):
     channel == "web" with a valid price, group by store: sum and count
     of the price."""
     from spark_rapids_jni_tpu_torch import INT32, Table
-    from spark_rapids_jni_tpu_torch.api import Aggregation, CastStrings, Filter, JSONUtils
+    from spark_rapids_jni_tpu_torch.api import Aggregation, Filter
+    from spark_rapids_jni_tpu_torch.ops.cast_string import string_to_decimal, string_to_integer
+    from spark_rapids_jni_tpu_torch.ops.get_json_object import get_json_object
 
     tick = tick or (lambda stage: None)
     c = t.columns
-    qty = CastStrings.toInteger(c[1], False, True, INT32, width=SS_WIDTHS[0])
+    qty = string_to_integer(c[1], INT32, strip=True, width=SS_WIDTHS[0])
     tick("cast_integer")
-    price = CastStrings.toDecimal(c[2], False, True, 9, 2, width=SS_WIDTHS[1])
+    price = string_to_decimal(c[2], 9, 2, strip=True, width=SS_WIDTHS[1])
     tick("cast_decimal")
-    channel = JSONUtils.getJsonObject(c[3], "$.channel", width=SS_WIDTHS[2])
+    channel = get_json_object(c[3], "$.channel", width=SS_WIDTHS[2])
     tick("get_json_object")
     keep = string_equals(channel, "web") & price.validity_or_true()
     web = Filter.apply(Table([c[0], qty, price, channel]), keep)
@@ -1591,98 +1621,740 @@ def scan_forms(elems=SS_RG * SS_WIDTHS[2], widths=(48, 256, 512, 1024)):
     print(f"lane scans, CUDA-event ms (mean of 10): {json.dumps(out)}", flush=True)
 
 
-def store_sales_sf10(counters, card, rows=SS_ROWS, rg_rows=SS_RG):
-    """Phase 12: store_sales at SF10 written to a Parquet file, read back
-    through the port's reader and run through the query, every row group
-    and the folded totals exactly equal to the oracle; end-to-end and
-    device-chain rows/s, per-stage ms, ops, a profile, peak memory."""
-    import shutil
-    import tempfile
-
+def store_sales_sf10(counters, card, path, rows=SS_ROWS, rg_rows=SS_RG):
+    """Phase 12: store_sales at SF10 written to a Parquet file at
+    ``path`` (phase 15 reads it again), read back through the port's
+    reader and run through the query, every row group and the folded
+    totals exactly equal to the oracle; end-to-end and device-chain
+    rows/s, per-stage ms, ops, a profile, peak memory."""
     from spark_rapids_jni_tpu_torch.api import ParquetReader
     from spark_rapids_jni_tpu_torch.columnar.interop import table_from_numpy
     from spark_rapids_jni_tpu_torch.kernels import _build
 
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="store_sales-", dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    oracles = write_store_sales(path, rows, rg_rows)
+    print(f"store_sales data: {rows} rows in {len(oracles)} row groups written in "
+          f"{time.perf_counter() - t0:.1f} s, {os.path.getsize(path)} bytes; host "
+          f"libraries: {_build.describe_host_libraries()}", flush=True)
+    want_total = {}
+    for o in oracles:
+        ss_fold(want_total, o)
+
+    with ParquetReader(path) as r:  # warm-up: one row group, outside the clock
+        ss_chain(r.read_row_group(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in counters:
+        counters[name].launches = 0
+    stage_ms = {s: [] for s in SS_STAGES}
+    last = [0.0]
+
+    def tick(stage):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage_ms[stage].append((now - last[0]) * 1e3)
+        last[0] = now
+
+    resident, got_total = [], {}
+    start = last[0] = time.perf_counter()
+    with ParquetReader(path) as r:
+        for rg in range(r.num_row_groups):
+            specs = r.read_row_group_host(rg)
+            tick("decode")
+            t = table_from_numpy(specs, "cuda")
+            tick("h2d")
+            part = ss_result(ss_chain(t, tick))
+            if part != oracles[rg]:
+                raise AssertionError(f"store_sales row group {rg} differs from the oracle")
+            ss_fold(got_total, part)
+            resident.append(t)
+    e2e_s = time.perf_counter() - start
+    launches = {name: c.launches for name, c in counters.items()}
+    if got_total != want_total:
+        raise AssertionError("store_sales folded totals differ from the oracle")
+    resident_bytes = sum(
+        c.data.numel() * c.data.element_size()
+        + (0 if c.offsets is None else 4 * c.offsets.numel())
+        for t in resident for c in t.columns)
+
+    torch.cuda.synchronize()
+    chain_total = {}
+    t0 = time.perf_counter()
+    for t in resident:
+        ss_fold(chain_total, ss_result(ss_chain(t)))
+    chain_s = time.perf_counter() - t0
+    if chain_total != want_total:
+        raise AssertionError("store_sales device-chain totals differ from the oracle")
+
+    med = {s: float(np.median(v)) for s, v in stage_ms.items()}
+    print(f"store_sales sf10: {len(resident)} row groups and the folded totals exact "
+          f"against the oracle ({len(want_total)} stores); kernel launches on the "
+          f"store_sales path {json.dumps(launches)}")
+    print(f"store_sales sf10 per-row-group ms (median over row groups): {json.dumps(med)}")
+    print(f"store_sales SF10 rows/s end to end: {rows / e2e_s:.4g} ({rows} rows in "
+          f"{e2e_s * 1e3:.1f} ms, file open to last fold, decode and copy included)")
+    print(f"store_sales SF10 device-chain rows/s: {rows / chain_s:.4g} ({rows} rows in "
+          f"{chain_s * 1e3:.1f} ms over {resident_bytes} bytes resident on the card)")
+    t0 = resident[0]
+    print(f"store_sales torch ops dispatched per row group: "
+          f"{json.dumps(op_counts(lambda tick: ss_chain(t0, tick)))}")
+    profile_stage(f"store_sales row group ({t0.num_rows} rows)", lambda: ss_chain(t0),
+                  top=10)
+    print(f"store_sales sf10 peak device memory: {torch.cuda.max_memory_allocated()} "
+          f"bytes; card: {card}", flush=True)
+    del resident
+    scan_forms()
+    return launches
+
+
+# ---- float casts, from_json and nested Parquet (the rest of config 4's
+# string layer) ----
+
+FLOAT_CASES = [
+    "0", "-0", "-0.0", "+3", "1.5", "-2.25", "007.5", "1e3", "1.5e-2", "1E+308", "1e+0308",
+    "nan", "NaN", "NAN", " nan", "nan ", "nanx", "-nan", "+nan",
+    "inf", "-inf", "+inf", "Inf", "  inf", "Infinity", "-INFINITY", "infx", "infinity2",
+    "inf ", "infini", "-infinityy",
+    "1.5f", "1.5F", "2.5d", "2.5D", "1e5f", "1.5ff", "1.5f  ", "0f", "0.0d", "-0F", "f", "d",
+    "1e1234", "1e12345", "1e309", "-1e400", "1e-400", "9.9e308", "1.7976931348623157e308",
+    "9223372036854775807", "9223372036854775808", "9999999999999999999", "12345678901234567890",
+    "18446744073709551615", "18446744073709551616", "99999999999999999999",
+    "1234567890123456789012345", "-1234567890123456789012345e-5", "12345678901234567890.5",
+    "0.000000000000000000001234567890123456789", "6249979066121302517",
+    "4.9e-324", "-4.9e-324", "1e-320", "2.2250738585072014e-308", "2.2250738585072011e-308",
+    "1e-309", "-1e-310", "1e-40", "1.17549435e-38", "1.4e-45", "3.4028235e38", "3.5e38",
+    "  1.5  ", "\t-2.25\n", "\r+7\r", "--1", "+-1", "- 1", "1 2", "", " ", ".", "-.", ".5",
+    "5.", "-.5e1", "1.2.3", "1e", "1e+", "e5", "0x1A", "١.٥", "1,5", "12a",
+]
+
+
+def float_spec(n, seed):
+    """Interop STRING column of ``n`` float strings: the quirk cases
+    above and random values (repr of random doubles over 60 decades,
+    float32 values, integers), with nulls."""
+    rng = np.random.default_rng(seed)
+    mags = rng.standard_normal(n) * 10.0 ** rng.integers(-30, 30, n)
+    randoms = np.where(
+        rng.random(n) < 0.5,
+        [repr(float(v)) for v in mags],
+        [repr(float(np.float32(v))) for v in mags],
+    ).tolist()
+    ints = rng.integers(-(10**18), 10**18, n)
+    values = [c if r < 0.3 else (v if r < 0.8 else str(i)) for c, r, v, i in zip(
+        np.array(FLOAT_CASES, dtype=object)[rng.integers(0, len(FLOAT_CASES), n)],
+        rng.random(n), randoms, ints)]
+    return string_spec_from_list(values, rng, 0.05)
+
+
+JSON_KEYS = ["a", "channel", "promo", 'k\\"q', "é", "\\ud83d\\ude00", "tab\\tkey", "", "dup"]
+JSON_SCALARS = ["0", "-1", "12.5e-3", "1E+9", "-0.25", "true", "false", "null", '""', '"x"',
+                '"esc \\\\ \\/ \\b \\f \\n \\r \\t \\" \\u0041"', '"\\ud83d\\ude00 and \\u00e9"',
+                '"é and 😀 raw"', "123456789012345678901234567890"]
+
+
+def json_doc(rng, depth=0):
+    """One random JSON object: escaped and non-ASCII keys, duplicate
+    keys, every scalar kind, nested objects and arrays, empty
+    containers, spacing."""
+    sp = [" ", "", "  ", "\t", "\n"][rng.integers(0, 5)]
+    items = []
+    for _ in range(rng.integers(0, 5)):
+        r = rng.random()
+        if r < 0.6 or depth > 2:
+            v = JSON_SCALARS[rng.integers(0, len(JSON_SCALARS))]
+        elif r < 0.8:
+            v = json_doc(rng, depth + 1)
+        else:
+            v = "[" + ", ".join(JSON_SCALARS[rng.integers(0, len(JSON_SCALARS))]
+                                for _ in range(rng.integers(0, 4))) + "]"
+        key = JSON_KEYS[rng.integers(0, len(JSON_KEYS))]
+        items.append(f'"{key}"{sp}:{sp}{v}')
+    return "{" + sp + ("," + sp).join(items) + sp + "}"
+
+
+def from_json_spec(n, seed):
+    """Two interop STRING columns of ``n`` valid JSON objects with nulls:
+    0 with some documents past 256 bytes (char matrix bucket 512, where
+    the lane scans give way to torch's), 1 with every document longer
+    than 64 bytes replaced (bucket 64)."""
+    rng = np.random.default_rng(seed)
+    docs = [json_doc(rng) for _ in range(n)]
+    docs = [d if len(d.encode()) <= 256 else '{"a": [1, {"x": "y"}], "b": {}}' for d in docs]
+    for i in rng.integers(0, n, 64):
+        docs[i] = '{"memo": "' + "long value " * 25 + '", "k": [1, {"x": "y"}]}'
+    short = [d if len(d.encode()) <= 64 else '{"channel": "store"}' for d in docs]
+    return [string_spec_from_list(docs, rng, 0.05), string_spec_from_list(short, rng, 0.05)]
+
+
+def list_arrays(col):
+    """The buffers of a List<Struct<String,String>> result: name -> numpy."""
+    kv = col.child.children
+    return {
+        "list offsets": col.offsets.cpu().numpy(),
+        "list validity": col.validity_or_true().cpu().numpy(),
+        "key data": kv[0].data.cpu().numpy(), "key offsets": kv[0].offsets.cpu().numpy(),
+        "value data": kv[1].data.cpu().numpy(), "value offsets": kv[1].offsets.cpu().numpy(),
+        "child validity": np.concatenate([c.validity_or_true().cpu().numpy() for c in kv]),
+    }
+
+
+def float_json_ops(floats, docs):
+    """Every float cast and from_json of phase 13 over one device's
+    columns: name -> {buffer: numpy}."""
+    from spark_rapids_jni_tpu_torch import FLOAT32, FLOAT64
+    from spark_rapids_jni_tpu_torch.api import CastStrings, MapUtils
+    from spark_rapids_jni_tpu_torch.ops import _strategy
+
+    out = {}
+    for dt in (FLOAT32, FLOAT64):
+        c = CastStrings.toFloat(floats, False, dt)
+        out[f"toFloat FLOAT{dt.bits}"] = {
+            "data": c.data.cpu().numpy(), "validity": c.validity_or_true().cpu().numpy()}
+    for strategy in ("auto", "serial"):
+        _strategy.set_scan_strategy(strategy)
+        try:
+            for i, col in enumerate(docs):
+                got = MapUtils.extractRawMapFromJsonString(col)
+                out[f"from_json {strategy} column {i}"] = list_arrays(got)
+        finally:
+            _strategy.set_scan_strategy(None)
+    return out
+
+
+def float_json_errors(floats, docs, bad_row):
+    """(row, text) of the CastException of the ANSI float cast and of the
+    JsonParsingException of a document column with row ``bad_row``
+    malformed, under both strategies."""
+    from spark_rapids_jni_tpu_torch import FLOAT64, Column
+    from spark_rapids_jni_tpu_torch.api import CastStrings, MapUtils
+    from spark_rapids_jni_tpu_torch.ops import _strategy
+    from spark_rapids_jni_tpu_torch.runtime.errors import CastException, JsonParsingException
+
+    got = {}
     try:
-        path = os.path.join(tmp, "store_sales.parquet")
-        t0 = time.perf_counter()
-        oracles = write_store_sales(path, rows, rg_rows)
-        print(f"store_sales data: {rows} rows in {len(oracles)} row groups written in "
-              f"{time.perf_counter() - t0:.1f} s, {os.path.getsize(path)} bytes; host "
-              f"libraries: {_build.describe_host_libraries()}", flush=True)
-        want_total = {}
-        for o in oracles:
-            ss_fold(want_total, o)
+        CastStrings.toFloat(floats, True, FLOAT64)
+    except CastException as e:
+        got["toFloat ANSI"] = [e.row_with_error, e.string_with_error]
+    else:
+        raise AssertionError("ANSI toFloat raised no CastException")
+    bad = b'{"a": [1}]}'
+    offs = docs.offsets.cpu().numpy().astype(np.int64)
+    data = docs.data.cpu().numpy()
+    data = np.concatenate([data[:offs[bad_row]], np.frombuffer(bad, np.uint8),
+                           data[offs[bad_row + 1]:]])
+    offs[bad_row + 1:] += len(bad) - (offs[bad_row + 1] - offs[bad_row])
+    valid = docs.validity_or_true().clone()
+    valid[bad_row] = True
+    col = Column(docs.dtype, torch.from_numpy(data).to(docs.device), valid,
+                 torch.from_numpy(offs.astype(np.int32)).to(docs.device))
+    for strategy in ("auto", "serial"):
+        _strategy.set_scan_strategy(strategy)
+        try:
+            MapUtils.extractRawMapFromJsonString(col)
+        except JsonParsingException as e:
+            got[f"from_json {strategy}"] = [e.row_with_error, e.context]
+        else:
+            raise AssertionError("a malformed document raised no JsonParsingException")
+        finally:
+            _strategy.set_scan_strategy(None)
+    return got
 
-        with ParquetReader(path) as r:  # warm-up: one row group, outside the clock
-            ss_chain(r.read_row_group(0))
+
+def float_json_card_vs_cpu(n):
+    """Phase 13: toFloat (FLOAT32 and FLOAT64) and from_json (both scan
+    strategies) on the card and on the CPU over one mixed batch; every
+    buffer must be equal, and the ANSI cast and a malformed document
+    must raise the same row."""
+    from spark_rapids_jni_tpu_torch.columnar.interop import column_from_numpy
+
+    floats_spec = float_spec(n, seed=13)
+    docs_spec = from_json_spec(n, seed=14)
+    t0 = time.perf_counter()
+    results, errors = {}, {}
+    for dev in ("cuda", "cpu"):
+        floats = column_from_numpy(floats_spec, dev)
+        docs = [column_from_numpy(s, dev) for s in docs_spec]
+        results[dev] = float_json_ops(floats, docs)
+        errors[dev] = float_json_errors(floats, docs[1], n // 2 + 7)
+    pairs = {}
+    for name, want in results["cpu"].items():
+        for key, w in want.items():
+            if not same_array(results["cuda"][name][key], w):
+                raise AssertionError(f"float/from_json card vs cpu [{name}]: {key} differs")
+        if "list offsets" in want:
+            pairs[name] = int(want["list offsets"][-1])
+    if errors["cuda"] != errors["cpu"]:
+        raise AssertionError(f"errors differ: card {errors['cuda']}, cpu {errors['cpu']}")
+    print(f"float/from_json card vs cpu: {len(results['cpu'])} results exact at {n} rows in "
+          f"{time.perf_counter() - t0:.1f} s; pairs {json.dumps(pairs)}; errors equal "
+          f"{json.dumps({k: v[0] for k, v in errors['cpu'].items()})}", flush=True)
+
+
+F_ROWS = (1 << 20, 104_857_600)  # the reference's {1 Mi, 100 Mi} nvbench axis
+F_CHUNK = 1 << 24  # 16 Mi-row device batches, as benchmarks/suites.py streams them
+
+
+def _digit_table(count, width):
+    """uint8 [count, width]: the decimal digits of 0..count-1 right-aligned
+    (zero bytes before the leading digit), and the digit counts."""
+    v = np.arange(count)
+    ndig = np.ones(count, np.int64)
+    for k in range(1, width):
+        ndig += v >= 10**k
+    cols = [v // 10 ** (width - 1 - j) % 10 + ord("0") for j in range(width)]
+    table = np.stack(cols, axis=1).astype(np.uint8)
+    table[np.arange(width)[None, :] < (width - ndig)[:, None]] = 0
+    return table, ndig
+
+
+def float_axis_strings(n, seed):
+    """``benchmarks/suites.py::_float_strings``-shaped strings (whole part
+    in [-1e6, 1e6), '.', a zero-padded 4-digit fraction) for the same
+    draws, built by numpy digit arithmetic: right-aligned 13-byte
+    records from digit tables, then the live bytes. Returns (interop
+    STRING spec, float32 oracle), the oracle (sign * (|whole| * 10^4 +
+    frac)) / 10^4 in float64, narrowed to float32: correctly rounded, as
+    the parse is."""
+    rng = np.random.default_rng(seed)
+    whole = rng.integers(-1_000_000, 1_000_000, n)
+    frac = rng.integers(0, 10_000, n)
+    neg = whole < 0
+    a = np.abs(whole)
+    wtab, wlen = _digit_table(1_000_001, 7)
+    ftab, _ = _digit_table(10_000, 4)
+    ftab[ftab == 0] = ord("0")  # the fraction keeps its leading zeros
+    mat = np.zeros((n, 13), np.uint8)
+    mat[:, 1:8] = wtab[a]
+    mat[:, 8] = ord(".")
+    mat[:, 9:] = ftab[frac]
+    wl = wlen[a]
+    rows = np.flatnonzero(neg)
+    mat[rows, 7 - wl[rows]] = ord("-")
+    lens = (wl + 5 + neg).astype(np.int32)
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    data = mat[np.arange(13)[None, :] >= (13 - lens)[:, None]]
+    oracle = (np.where(neg, -1.0, 1.0) * (a * 1e4 + frac) / 1e4).astype(np.float32)
+    spec = {"dtype": ("string", 0, None, None), "data": data, "offsets": offsets,
+            "validity": None}
+    return spec, oracle
+
+
+def float_axis(counters, card):
+    """Phase 14: FLOAT32 casts of the reference's string->float axis at
+    1 Mi and 100 Mi rows (the 100 Mi column resident on the card, cast
+    in 16 Mi-row chunks), every row exact against the oracle; rows/s at
+    both sizes, per-chunk ms, ops per chunk, a profile and the peak
+    device memory."""
+    from spark_rapids_jni_tpu_torch import FLOAT32
+    from spark_rapids_jni_tpu_torch.api import CastStrings
+    from spark_rapids_jni_tpu_torch.columnar.interop import column_from_numpy
+
+    def check(col, oracle, label):
+        res = CastStrings.toFloat(col, False, FLOAT32)
+        want = torch.from_numpy(oracle).to("cuda")
+        if res.validity is not None or not torch.equal(res.data.view(torch.int32),
+                                                       want.view(torch.int32)):
+            raise AssertionError(f"float axis {label}: differs from the oracle")
+
+    t0 = time.perf_counter()
+    spec, oracle = float_axis_strings(F_ROWS[0], seed=21)
+    small = column_from_numpy(spec, "cuda")
+    check(small, oracle, "1 Mi")
+    small_ms = host_ms(lambda: CastStrings.toFloat(small, False, FLOAT32), 5)
+
+    chunks, oracles, payload = [], [], 0
+    for i, lo in enumerate(range(0, F_ROWS[1], F_CHUNK)):
+        spec, oracle = float_axis_strings(min(F_CHUNK, F_ROWS[1] - lo), seed=100 + i)
+        payload += spec["data"].nbytes
+        chunks.append(column_from_numpy(spec, "cuda"))
+        oracles.append(oracle)
+    gen_s = time.perf_counter() - t0
+    resident = sum(c.data.numel() + 4 * c.offsets.numel() for c in chunks)
+    CastStrings.toFloat(chunks[0], False, FLOAT32)  # warm-up outside the clock
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in counters:
+        counters[name].launches = 0
+    chunk_ms = []
+    start = time.perf_counter()
+    for c in chunks:
+        t = time.perf_counter()
+        CastStrings.toFloat(c, False, FLOAT32)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for name in counters:
-            counters[name].launches = 0
-        stage_ms = {s: [] for s in SS_STAGES}
-        last = [0.0]
+        chunk_ms.append((time.perf_counter() - t) * 1e3)
+    total_s = time.perf_counter() - start
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for i, (c, o) in enumerate(zip(chunks, oracles)):
+        check(c, o, f"100 Mi chunk {i}")
+    print(f"float axis: 1 Mi and {F_ROWS[1]} rows exact against the oracle (strings made and "
+          f"copied in {gen_s:.1f} s; {payload} payload bytes, {resident} bytes resident); "
+          f"kernel launches on the path {json.dumps(launches)}")
+    print(f"float axis FLOAT32 rows/s: 1 Mi {F_ROWS[0] / small_ms * 1e3:.4g} ({small_ms:.3f} ms, "
+          f"median of 5); 100 Mi {F_ROWS[1] / total_s:.4g} ({total_s * 1e3:.1f} ms in "
+          f"{len(chunks)} chunks of <= {F_CHUNK} rows)")
+    print(f"float axis per-chunk ms: {json.dumps([round(m, 3) for m in chunk_ms])}")
+    print(f"float axis torch ops dispatched per 16 Mi chunk: "
+          f"{json.dumps(op_counts(lambda tick: (CastStrings.toFloat(chunks[0], False, FLOAT32), tick('toFloat'))))}")
+    profile_stage(f"toFloat chunk ({len(chunks[0])} rows)",
+                  lambda: CastStrings.toFloat(chunks[0], False, FLOAT32), top=8)
+    print(f"float axis peak device memory: {peak} bytes over the 100 Mi sweep; card: {card}",
+          flush=True)
+    return launches
 
-        def tick(stage):
+
+def from_json_expected(chan):
+    """The from_json buffers of ``{"promo": false, "channel": "<c>"}``
+    rows with channel indices ``chan``: name -> numpy."""
+    n = len(chan)
+    names = [c.encode() for c in SS_CHANNELS]
+    vlen = np.stack([np.full(n, 5), np.array([len(b) for b in names])[chan]], 1).reshape(-1)
+    table = np.zeros((len(names), 12), np.uint8)
+    for i, b in enumerate(names):
+        row = b"false" + b
+        table[i, :len(row)] = np.frombuffer(row, np.uint8)
+    vals = table[chan]
+    vdata = vals[np.arange(12)[None, :] < (5 + vlen[1::2])[:, None]]
+    klen = np.tile([5, 7], n)
+    return {
+        "list offsets": np.arange(0, 2 * n + 1, 2, dtype=np.int32),
+        "list validity": np.ones(n, bool),
+        "key data": np.tile(np.frombuffer(b"promochannel", np.uint8), n),
+        "key offsets": np.concatenate([[0], np.cumsum(klen)]).astype(np.int32),
+        "value data": vdata,
+        "value offsets": np.concatenate([[0], np.cumsum(vlen)]).astype(np.int32),
+        "child validity": np.ones(4 * n, bool),
+    }
+
+
+def from_json_sf10(counters, card, path, rg_rows=SS_RG):
+    """Phase 15: MapUtils.extractRawMapFromJsonString over ss_attrs_json
+    of phase 12's file, read through the port's ParquetReader with the
+    footer pruned to that column; every row group exact against the
+    generator; rows/s, per-row-group ms, ops, a profile, peak memory."""
+    from spark_rapids_jni_tpu_torch.api import MapUtils, ParquetReader
+    from spark_rapids_jni_tpu_torch.columnar.interop import table_from_numpy
+    from spark_rapids_jni_tpu_torch.ops.parquet_footer import StructElement, ValueElement
+
+    schema = StructElement()
+    schema.add_child("ss_attrs_json", ValueElement())
+    with ParquetReader(path, schema) as r:  # warm-up, outside the clock
+        MapUtils.extractRawMapFromJsonString(r.read_row_group(0).columns[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in counters:
+        counters[name].launches = 0
+    stage_ms = {s: [] for s in ("decode", "h2d", "from_json")}
+    resident, rows, e2e_s = [], 0, 0.0
+    with ParquetReader(path, schema) as r:
+        for rg in range(r.num_row_groups):
+            t = time.perf_counter()
+            specs = r.read_row_group_host(rg)
+            t1 = time.perf_counter()
+            col = table_from_numpy(specs, "cuda").columns[0]
             torch.cuda.synchronize()
-            now = time.perf_counter()
-            stage_ms[stage].append((now - last[0]) * 1e3)
-            last[0] = now
+            t2 = time.perf_counter()
+            out = MapUtils.extractRawMapFromJsonString(col)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for s, a, b in (("decode", t, t1), ("h2d", t1, t2), ("from_json", t2, t3)):
+                stage_ms[s].append((b - a) * 1e3)
+            e2e_s += t3 - t
+            if out.validity is not None:
+                raise AssertionError(f"from_json row group {rg}: rows came back null")
+            got = list_arrays(out)
+            want = from_json_expected(ss_gen_chunk(len(col), 1000 + rg)["chan"])
+            for key, w in want.items():
+                if not same_array(got[key], w):
+                    raise AssertionError(f"from_json row group {rg}: {key} differs from the "
+                                         "generator")
+            rows += len(col)
+            resident.append(col)
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for col in resident:
+        MapUtils.extractRawMapFromJsonString(col)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    med = {s: float(np.median(v)) for s, v in stage_ms.items()}
+    c0 = resident[0]
+    print(f"from_json sf10: {rows} rows in {len(resident)} row groups exact against the "
+          f"generator; kernel launches on the path {json.dumps(launches)}")
+    print(f"from_json sf10 per-row-group ms (median over row groups): {json.dumps(med)}")
+    print(f"from_json SF10 rows/s: end to end {rows / e2e_s:.4g} (decode, copy and "
+          f"from_json, {e2e_s * 1e3:.1f} ms); on the card {rows / chain_s:.4g} "
+          f"({chain_s * 1e3:.1f} ms over the resident column, char width "
+          f"{int(c0.string_lengths().max())} bytes before bucketing)")
+    print(f"from_json torch ops dispatched per row group: "
+          f"{json.dumps(op_counts(lambda tick: (MapUtils.extractRawMapFromJsonString(c0), tick('from_json'))))}")
+    profile_stage(f"from_json row group ({len(c0)} rows)",
+                  lambda: MapUtils.extractRawMapFromJsonString(c0), top=10)
+    print(f"from_json sf10 peak device memory: {peak} bytes; card: {card}", flush=True)
+    return launches
 
-        resident, got_total = [], {}
-        start = last[0] = time.perf_counter()
-        with ParquetReader(path) as r:
-            for rg in range(r.num_row_groups):
-                specs = r.read_row_group_host(rg)
-                tick("decode")
-                t = table_from_numpy(specs, "cuda")
-                tick("h2d")
-                part = ss_result(ss_chain(t, tick))
-                if part != oracles[rg]:
-                    raise AssertionError(f"store_sales row group {rg} differs from the oracle")
-                ss_fold(got_total, part)
-                resident.append(t)
-        e2e_s = time.perf_counter() - start
-        launches = {name: c.launches for name, c in counters.items()}
-        if got_total != want_total:
-            raise AssertionError("store_sales folded totals differ from the oracle")
-        resident_bytes = sum(
-            c.data.numel() * c.data.element_size()
-            + (0 if c.offsets is None else 4 * c.offsets.numel())
-            for t in resident for c in t.columns)
 
+# -- nested Parquet: definition and repetition levels (RLE / bit-packed
+# hybrid), PLAIN pages --
+
+NESTED_SCHEMA = [
+    # (name, num_children, repetition 0 req / 1 opt / 2 rep, converted, physical)
+    ("ints", 1, 1, 3, None), ("list", 1, 2, None, None), ("element", 0, 1, None, 1),
+    ("st", 2, 1, None, None), ("a", 0, 1, None, 2), ("b", 0, 1, 0, 6),
+    ("attrs", 1, 1, 1, None), ("key_value", 2, 2, None, None), ("key", 0, 0, 0, 6),
+    ("value", 0, 1, 0, 6),
+]
+NESTED_LEAVES = [  # (path, physical type, max_def, max_rep)
+    (("ints", "list", "element"), 1, 3, 1), (("st", "a"), 2, 2, 0), (("st", "b"), 6, 2, 0),
+    (("attrs", "key_value", "key"), 6, 2, 1), (("attrs", "key_value", "value"), 6, 3, 1),
+]
+
+
+def _strings(rng, n, max_len=12):
+    """(uint8 payload, int32 lengths) of ``n`` random ASCII strings."""
+    lens = rng.integers(0, max_len + 1, n).astype(np.int32)
+    mat = rng.integers(97, 123, (n, max_len)).astype(np.uint8)
+    return mat[np.arange(max_len)[None, :] < lens[:, None]], lens
+
+
+def _take_strings(payload, lens, keep):
+    """(payload, lens) of the strings of (payload, lens) at ``keep`` (a
+    bool mask or indices), in order."""
+    idx = np.flatnonzero(keep) if keep.dtype == bool else keep
+    starts = (np.cumsum(lens) - lens)[idx]
+    sel = lens[idx]
+    within = np.arange(int(sel.sum())) - np.repeat(np.cumsum(sel) - sel, sel)
+    return payload[np.repeat(starts, sel) + within], sel
+
+
+def nested_gen(n, seed):
+    """Three nested columns of ``n`` rows with nulls and empties at every
+    level, as Dremel level streams per leaf and as the interop form the
+    reader must give back. LIST<INT32> ``ints``; STRUCT<a INT64, b
+    STRING> ``st``; MAP<STRING, STRING> ``attrs`` holding the store_sales
+    attrs pairs (promo, channel) with null values."""
+    rng = np.random.default_rng(seed)
+    leaves, expected = [], []
+
+    # ints: null 10 %, empty 10 %, else 1-4 elements, 10 % of them null
+    state = rng.choice(3, n, p=[0.1, 0.1, 0.8])  # 0 null, 1 empty, 2 elements
+    k = np.where(state == 2, rng.integers(1, 5, n), 0)
+    ent = np.maximum(k, 1)
+    row = np.repeat(np.arange(n), ent)
+    within = np.arange(len(row)) - np.repeat(np.cumsum(ent) - ent, ent)
+    elem_null = rng.random(len(row)) < 0.1
+    defs = np.where(state[row] == 0, 0, np.where(state[row] == 1, 1, np.where(elem_null, 2, 3)))
+    vals = rng.integers(-(2**31), 2**31, len(row)).astype(np.int32)
+    leaves.append({"defs": defs, "reps": (within > 0).astype(np.int32),
+                   "values": vals[defs == 3].tobytes()})
+    is_elem = defs >= 2
+    expected.append({"list": {"dtype": ("int", 32, None, None), "data": vals[is_elem],
+                              "validity": defs[is_elem] == 3, "offsets": None},
+                     "offsets": np.concatenate([[0], np.cumsum(k)]).astype(np.int32),
+                     "validity": state != 0})
+
+    # st: null 10 %; a and b each null 10 % inside a valid struct
+    sv = rng.random(n) >= 0.1
+    a_ok = sv & (rng.random(n) >= 0.1)
+    b_ok = sv & (rng.random(n) >= 0.1)
+    a = rng.integers(-(2**63), 2**63 - 1, n)
+    bpay, blen = _strings(rng, n)
+    bpay, blen = _take_strings(bpay, blen, b_ok)
+    leaves.append({"defs": np.where(a_ok, 2, sv.astype(np.int64)), "reps": None,
+                   "values": a[a_ok].tobytes()})
+    leaves.append({"defs": np.where(b_ok, 2, sv.astype(np.int64)), "reps": None,
+                   "strings": (bpay, blen)})
+    all_blen = np.zeros(n, np.int32)
+    all_blen[b_ok] = blen
+    expected.append({"struct": [
+        {"dtype": ("int", 64, None, None), "data": np.where(a_ok, a, 0), "validity": a_ok,
+         "offsets": None},
+        {"dtype": ("string", 0, None, None), "data": bpay, "validity": b_ok,
+         "offsets": np.concatenate([[0], np.cumsum(all_blen)]).astype(np.int32)},
+    ], "names": ("a", "b"), "validity": sv})
+
+    # attrs: null 5 %, empty 5 %, else (promo, channel) with values null
+    # 5 % of the time
+    mstate = rng.choice(3, n, p=[0.05, 0.05, 0.9])
+    pairs = np.where(mstate == 2, 2, 0)
+    ent = np.maximum(pairs, 1)
+    row = np.repeat(np.arange(n), ent)
+    within = np.arange(len(row)) - np.repeat(np.cumsum(ent) - ent, ent)
+    is_pair = mstate[row] == 2
+    kdefs = np.where(mstate[row] == 0, 0, np.where(is_pair, 2, 1))
+    vnull = rng.random(len(row)) < 0.05
+    vdefs = np.where(is_pair, np.where(vnull, 2, 3), kdefs)
+    chan = rng.integers(0, 3, n)
+    promo = rng.integers(0, 2, n)
+    words = [b"promo", b"channel", b"false", b"true"] + [c.encode() for c in SS_CHANNELS]
+    wpay = np.frombuffer(b"".join(words), np.uint8)
+    wlen = np.array([len(w) for w in words], np.int32)
+    kword = np.where(within == 0, 0, 1)[is_pair]
+    vword = np.where(within == 0, 2 + promo[row], 4 + chan[row])[is_pair]
+    kpay, klen = _take_strings(wpay, wlen, kword)
+    vsel = vword[vdefs[is_pair] == 3]
+    vpay, vlen_ok = _take_strings(wpay, wlen, vsel)
+    leaves.append({"defs": kdefs, "reps": (within > 0).astype(np.int32), "strings": (kpay, klen)})
+    leaves.append({"defs": vdefs, "reps": (within > 0).astype(np.int32),
+                   "strings": (vpay, vlen_ok)})
+    vlen_all = np.zeros(int(is_pair.sum()), np.int32)
+    vlen_all[vdefs[is_pair] == 3] = vlen_ok
+    expected.append({"list": {"struct": [
+        {"dtype": ("string", 0, None, None), "data": kpay, "validity": None,
+         "offsets": np.concatenate([[0], np.cumsum(klen)]).astype(np.int32)},
+        {"dtype": ("string", 0, None, None), "data": vpay, "validity": vdefs[is_pair] == 3,
+         "offsets": np.concatenate([[0], np.cumsum(vlen_all)]).astype(np.int32)},
+    ], "names": ("key", "value"), "validity": None},
+        "offsets": np.concatenate([[0], np.cumsum(pairs)]).astype(np.int32),
+        "validity": mstate != 0})
+    return leaves, expected
+
+
+def _levels(levels, max_level):
+    """A v1 page's level section: 4-byte length, one bit-packed run."""
+    run = rle_bitpacked(np.asarray(levels, np.uint32), max(int(max_level).bit_length(), 1))
+    return len(run).to_bytes(4, "little") + run
+
+
+def _plain_strings(payload, lens):
+    """PLAIN BYTE_ARRAY values: a 4-byte length before each string."""
+    width = int(lens.max()) + 4 if len(lens) else 4
+    mat = np.zeros((len(lens), width), np.uint8)
+    mat[:, :4] = lens.astype("<u4").view(np.uint8).reshape(-1, 4)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    col = np.arange(width - 4)[None, :]
+    live = col < lens[:, None]
+    mat[:, 4:][live] = payload[(offs[:-1, None] + col)[live]]
+    return mat[np.arange(width)[None, :] < (lens + 4)[:, None]].tobytes()
+
+
+def write_nested(path, n, seed=16):
+    """One row group of ``nested_gen(n, seed)`` as a Parquet file:
+    per leaf one v1 data page (SNAPPY literal) of repetition levels,
+    definition levels and PLAIN values. Returns the expected columns."""
+    leaves, expected = nested_gen(n, seed)
+    f = open(path, "wb")
+    f.write(b"PAR1")
+    chunks, total = [], 0
+    for (names, ptype, max_def, max_rep), leaf in zip(NESTED_LEAVES, leaves):
+        body = b""
+        if max_rep:
+            body += _levels(leaf["reps"], max_rep)
+        body += _levels(leaf["defs"], max_def)
+        body += leaf["values"] if "values" in leaf else _plain_strings(*leaf["strings"])
+        comp = snappy_literal(body)
+        nv = len(leaf["defs"])
+        head = _tstruct([(1, _T_I32, 0), (2, _T_I32, len(body)), (3, _T_I32, len(comp)),
+                         (5, _T_STRUCT, _tstruct([(1, _T_I32, nv), (2, _T_I32, 0),
+                                                  (3, _T_I32, 3), (4, _T_I32, 3)]))])
+        start = f.tell()
+        f.write(head + comp)
+        size = len(head) + len(comp)
+        total += size
+        meta = _tstruct([
+            (1, _T_I32, ptype), (2, _T_LIST, _tlist(_T_I32, [0, 3])),
+            (3, _T_LIST, _tlist(_T_BINARY, list(names))), (4, _T_I32, 1),
+            (5, _T_I64, nv), (6, _T_I64, len(head) + len(body)), (7, _T_I64, size),
+            (9, _T_I64, start),
+        ])
+        chunks.append(_tstruct([(2, _T_I64, start), (3, _T_STRUCT, meta)]))
+    schema = [_tstruct([(4, _T_BINARY, "schema"), (5, _T_I32, 3)])]
+    for name, nch, rep, conv, ptype in NESTED_SCHEMA:
+        fields = [] if ptype is None else [(1, _T_I32, ptype)]
+        fields += [(3, _T_I32, rep), (4, _T_BINARY, name)]
+        if nch:
+            fields.append((5, _T_I32, nch))
+        if conv is not None:
+            fields.append((6, _T_I32, conv))
+        schema.append(_tstruct(fields))
+    rg = _tstruct([(1, _T_LIST, _tlist(_T_STRUCT, chunks)), (2, _T_I64, total),
+                   (3, _T_I64, n)])
+    footer = _tstruct([
+        (1, _T_I32, 1), (2, _T_LIST, _tlist(_T_STRUCT, schema)), (3, _T_I64, n),
+        (4, _T_LIST, _tlist(_T_STRUCT, [rg])),
+        (6, _T_BINARY, "spark_rapids_jni_tpu_torch chip_smoke"),
+    ])
+    f.write(footer + len(footer).to_bytes(4, "little") + b"PAR1")
+    f.close()
+    return expected
+
+
+def _rows_of(spec):
+    if "list" in spec:
+        return len(spec["offsets"]) - 1
+    if "struct" in spec:
+        return _rows_of(spec["struct"][0])
+    return len(spec["offsets"]) - 1 if spec["offsets"] is not None else len(spec["data"])
+
+
+def same_nested(got, want, label):
+    """Exact equality of two interop trees; fixed-width data compared
+    where valid (a null slot's value is unspecified)."""
+    n = _rows_of(want)
+    if _rows_of(got) != n:
+        raise AssertionError(f"{label}: {_rows_of(got)} rows, not {n}")
+    valid = np.ones(n, bool) if want["validity"] is None else want["validity"]
+    got_valid = np.ones(n, bool) if got["validity"] is None else got["validity"]
+    if not np.array_equal(got_valid, valid):
+        raise AssertionError(f"{label}: validity differs")
+    if "list" in want:
+        if not np.array_equal(got["offsets"], want["offsets"]):
+            raise AssertionError(f"{label}: list offsets differ")
+        same_nested(got["list"], want["list"], label + ".element")
+    elif "struct" in want:
+        if tuple(got["names"]) != tuple(want["names"]):
+            raise AssertionError(f"{label}: struct names differ")
+        for g, w, nm in zip(got["struct"], want["struct"], want["names"]):
+            same_nested(g, w, f"{label}.{nm}")
+    elif tuple(got["dtype"]) != tuple(want["dtype"]):
+        raise AssertionError(f"{label}: dtype {got['dtype']} != {want['dtype']}")
+    elif want["offsets"] is not None:
+        if not (np.array_equal(got["offsets"], want["offsets"])
+                and np.array_equal(got["data"], want["data"])):
+            raise AssertionError(f"{label}: string bytes or offsets differ")
+    elif not np.array_equal(got["data"][valid], want["data"][valid]):
+        raise AssertionError(f"{label}: values differ")
+
+
+NESTED_ROWS = SS_RG  # one 2 Mi-row row group, the rung-4 size
+
+
+def nested_parquet(counters, card, path, n=NESTED_ROWS):
+    """Phase 16: one row group of LIST<INT32>, STRUCT<INT64, STRING> and
+    MAP<STRING, STRING> with nulls and empties at every level, read on
+    the card and on the CPU; both equal to each other and to the
+    generator; decode and h2d ms."""
+    from spark_rapids_jni_tpu_torch.api import ParquetReader
+    from spark_rapids_jni_tpu_torch.columnar.interop import table_from_numpy, table_to_numpy
+
+    t0 = time.perf_counter()
+    expected = write_nested(path, n)
+    write_s = time.perf_counter() - t0
+    for name in counters:
+        counters[name].launches = 0
+    with ParquetReader(path) as r:
+        r.read_row_group_host(0)  # warm-up outside the clock
+        t = time.perf_counter()
+        specs = r.read_row_group_host(0)
+        t1 = time.perf_counter()
+        card_t = table_from_numpy(specs, "cuda")
         torch.cuda.synchronize()
-        chain_total = {}
-        t0 = time.perf_counter()
-        for t in resident:
-            ss_fold(chain_total, ss_result(ss_chain(t)))
-        chain_s = time.perf_counter() - t0
-        if chain_total != want_total:
-            raise AssertionError("store_sales device-chain totals differ from the oracle")
-
-        med = {s: float(np.median(v)) for s, v in stage_ms.items()}
-        print(f"store_sales sf10: {len(resident)} row groups and the folded totals exact "
-              f"against the oracle ({len(want_total)} stores); kernel launches on the "
-              f"store_sales path {json.dumps(launches)}")
-        print(f"store_sales sf10 per-row-group ms (median over row groups): {json.dumps(med)}")
-        print(f"store_sales SF10 rows/s end to end: {rows / e2e_s:.4g} ({rows} rows in "
-              f"{e2e_s * 1e3:.1f} ms, file open to last fold, decode and copy included)")
-        print(f"store_sales SF10 device-chain rows/s: {rows / chain_s:.4g} ({rows} rows in "
-              f"{chain_s * 1e3:.1f} ms over {resident_bytes} bytes resident on the card)")
-        t0 = resident[0]
-        print(f"store_sales torch ops dispatched per row group: "
-              f"{json.dumps(op_counts(lambda tick: ss_chain(t0, tick)))}")
-        profile_stage(f"store_sales row group ({t0.num_rows} rows)", lambda: ss_chain(t0),
-                      top=10)
-        print(f"store_sales sf10 peak device memory: {torch.cuda.max_memory_allocated()} "
-              f"bytes; card: {card}", flush=True)
-        del resident
-        scan_forms()
-        return launches
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        t2 = time.perf_counter()
+    with ParquetReader(path, device="cpu") as r:
+        cpu_t = r.read_row_group(0)
+    launches = {name: c.launches for name, c in counters.items()}
+    for g_card, g_cpu, w, nm in zip(table_to_numpy(card_t), table_to_numpy(cpu_t), expected,
+                                    ("ints", "st", "attrs")):
+        same_nested(g_card, w, f"nested card {nm}")
+        same_nested(g_cpu, w, f"nested cpu {nm}")
+        same_nested(g_card, g_cpu, f"nested card vs cpu {nm}")
+    print(f"nested parquet: {n} rows x 3 nested columns ({os.path.getsize(path)} bytes, written "
+          f"in {write_s:.1f} s) read on the card and on the CPU, both exact against the "
+          f"generator; decode {(t1 - t) * 1e3:.2f} ms, h2d {(t2 - t1) * 1e3:.2f} ms; kernel "
+          f"launches on the path {json.dumps(launches)}; card: {card}", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -1840,8 +2512,10 @@ def main() -> int:
     card_vs_cpu(N_MIXED)
     phase_done("6 card vs cpu")
 
+    counters = {"murmur3_chain": murmur3}
+    launches = {"rung 1": main_launches}
     # ---- 7. the q1 path at SF10, counted
-    q1_sf10({"murmur3_chain": murmur3}, card)
+    launches["q1"] = q1_sf10(counters, card)["murmur3_chain"]
     phase_done("7 q1 sf10")
 
     # ---- 8. joins, card against CPU, exact
@@ -1849,7 +2523,7 @@ def main() -> int:
     phase_done("8 join card vs cpu")
 
     # ---- 9. the q5 path at SF10, counted
-    q5_sf10({"murmur3_chain": murmur3}, card)
+    launches["q5"] = q5_sf10(counters, card)["murmur3_chain"]
     phase_done("9 q5 sf10")
 
     # ---- 10. host JCUDF codec against the card's rows
@@ -1860,13 +2534,37 @@ def main() -> int:
     cast_json_card_vs_cpu(N_MIXED)
     phase_done("11 cast/json card vs cpu")
 
-    # ---- 12. store_sales at SF10 through Parquet, counted
-    ss_launches = store_sales_sf10({"murmur3_chain": murmur3}, card)
-    if ss_launches["murmur3_chain"] != 0:
-        raise AssertionError("the store_sales path launched the murmur3 kernel")
-    phase_done("12 store_sales sf10")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        ss_path = os.path.join(tmp, "store_sales.parquet")
+        # ---- 12. store_sales at SF10 through Parquet, counted
+        launches["store_sales"] = store_sales_sf10(counters, card, ss_path)["murmur3_chain"]
+        phase_done("12 store_sales sf10")
 
-    # ---- 13. kernel numbers, card, verdict
+        # ---- 13. float casts and from_json, card against CPU, exact
+        float_json_card_vs_cpu(N_MIXED)
+        phase_done("13 float/from_json card vs cpu")
+
+        # ---- 14. the reference's string->float axis, counted
+        launches["float_cast"] = float_axis(counters, card)["murmur3_chain"]
+        phase_done("14 float axis")
+
+        # ---- 15. from_json over SF10 store_sales, counted
+        launches["from_json"] = from_json_sf10(counters, card, ss_path)["murmur3_chain"]
+        phase_done("15 from_json sf10")
+
+        # ---- 16. nested Parquet, card and CPU against the generator
+        launches["nested_parquet"] = nested_parquet(
+            counters, card, os.path.join(tmp, "nested.parquet"))["murmur3_chain"]
+        phase_done("16 nested parquet")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for path, count in launches.items():
+        if (count >= 1) != (path == "rung 1"):
+            raise AssertionError(f"murmur3 launches on the {path} path: {count}")
+
+    # ---- 17. kernel numbers, card, verdict
     k = timings["keys"]
     print(json.dumps({"kernels": [{
         "name": "murmur3_chain",
@@ -1874,6 +2572,7 @@ def main() -> int:
         "source": "spark_rapids_jni_tpu_torch/kernels/csrc/murmur3.cu",
         "replaces": "spark_rapids_jni_tpu/kernels/murmur3.py:101",
         "launches": main_launches,
+        "launches_by_path": launches,
         "max_abs_err": max_err,
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

@@ -1,10 +1,10 @@
 """API façade of the port: the reference's Java class surface, one
 Python class per Java class (PyTorch twin of the JAX package's
-``api.py``). The port carries ``CastStrings`` (integer and decimal
-casts), ``DecimalUtils``, ``JSONUtils``, ``RowConversion``, the Parquet
-ingress (``ParquetFooter``, ``ParquetReader``, ``read_table``) and the
-relational extensions ``SortOrder``, ``Aggregation``, ``Filter`` and
-``Join``."""
+``api.py``, with its signatures). The port carries ``CastStrings``,
+``DecimalUtils``, ``MapUtils``, ``JSONUtils``, ``RowConversion``, the
+Parquet ingress (``ParquetFooter``, ``ParquetReader``, ``read_table``)
+and the relational extensions ``SortOrder``, ``Aggregation``,
+``Filter`` and ``Join``."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import List, Optional, Sequence
 
 from .columnar.column import Column
 from .columnar.dtypes import DType
+from .columnar.nested import ListColumn
 from .columnar.table import Table
 from .ops import aggregate as _aggregate
 from .ops import cast_string as _cast_string
@@ -19,6 +20,7 @@ from .ops import decimal as _decimal
 from .ops import filter as _filter
 from .ops import get_json_object as _get_json_object
 from .ops import join as _join
+from .ops import map_utils as _map_utils
 from .ops import row_conversion as _row_conversion
 from .ops import sort as _sort
 from .ops.parquet_footer import ParquetFooter  # noqa: F401
@@ -26,27 +28,23 @@ from .ops.parquet_reader import ParquetReader, read_table  # noqa: F401
 
 
 class CastStrings:
-    """CastStrings.java:36-99 — Spark-exact string casts. ``width``
-    pins the char-matrix width in bytes (checked, never truncating);
-    by default it is measured (one host sync)."""
+    """CastStrings.java:36-99 — Spark-exact string casts."""
 
     @staticmethod
-    def toInteger(
-        cv: Column, ansi_enabled: bool, strip: bool, dtype: DType,
-        width: Optional[int] = None,
-    ) -> Column:
-        return _cast_string.string_to_integer(
-            cv, dtype, ansi_mode=ansi_enabled, strip=strip, width=width
-        )
+    def toInteger(cv: Column, ansi_enabled: bool, strip: bool, dtype: DType) -> Column:
+        return _cast_string.string_to_integer(cv, dtype, ansi_mode=ansi_enabled, strip=strip)
 
     @staticmethod
     def toDecimal(
-        cv: Column, ansi_enabled: bool, strip: bool, precision: int, scale: int,
-        width: Optional[int] = None,
+        cv: Column, ansi_enabled: bool, strip: bool, precision: int, scale: int
     ) -> Column:
         return _cast_string.string_to_decimal(
-            cv, precision, scale, ansi_mode=ansi_enabled, strip=strip, width=width
+            cv, precision, scale, ansi_mode=ansi_enabled, strip=strip
         )
+
+    @staticmethod
+    def toFloat(cv: Column, ansi_enabled: bool, dtype: DType) -> Column:
+        return _cast_string.string_to_float(cv, dtype, ansi_mode=ansi_enabled)
 
 
 class DecimalUtils:
@@ -74,13 +72,20 @@ class DecimalUtils:
         return _decimal.subtract128(a, b, target_scale)
 
 
-class JSONUtils:
-    """get_json_object — JSONPath extraction (ops/get_json_object.py).
-    ``width`` pins the input char width (checked, never truncating)."""
+class MapUtils:
+    """MapUtils.java:47-50 — JSON object to raw key/value map."""
 
     @staticmethod
-    def getJsonObject(cv: Column, path: str, width: Optional[int] = None) -> Column:
-        return _get_json_object.get_json_object(cv, path, width)
+    def extractRawMapFromJsonString(cv: Column) -> ListColumn:
+        return _map_utils.from_json(cv)
+
+
+class JSONUtils:
+    """get_json_object — JSONPath extraction (ops/get_json_object.py)."""
+
+    @staticmethod
+    def getJsonObject(cv: Column, path: str) -> Column:
+        return _get_json_object.get_json_object(cv, path)
 
 
 class RowConversion:

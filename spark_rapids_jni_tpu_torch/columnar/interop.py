@@ -11,6 +11,10 @@ column::
 with the layout of ``columnar/column.py``: fixed-width ``data`` is
 ``[n]`` (``[n, 2]`` int64 limbs for DECIMAL128), varlen ``data`` is the
 uint8 payload with int32 ``[n + 1]`` offsets, validity is bool ``[n]``.
+Nested columns (``columnar/nested.py``) nest the same dicts::
+
+    {"list": child, "offsets": np.ndarray, "validity": ...}
+    {"struct": [child, ...], "names": (...), "validity": ...}
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from .column import Column, resolve_device
 from .dtypes import DType
+from .nested import ListColumn, StructColumn
 from .table import Table
 
 
@@ -29,11 +34,18 @@ def _to_device(arr, np_dtype, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, np_dtype, copy=True)).to(dev)
 
 
-def column_from_numpy(spec: Dict, device="cuda") -> Column:
+def column_from_numpy(spec: Dict, device="cuda"):
     dev = resolve_device(device)
-    dtype = DType(*spec["dtype"])
     validity = spec.get("validity")
     v = None if validity is None else _to_device(validity, np.bool_, dev)
+    if "list" in spec:
+        return ListColumn(
+            _to_device(spec["offsets"], np.int32, dev), column_from_numpy(spec["list"], dev), v
+        )
+    if "struct" in spec:
+        kids = tuple(column_from_numpy(c, dev) for c in spec["struct"])
+        return StructColumn(kids, v, tuple(spec["names"]))
+    dtype = DType(*spec["dtype"])
     if dtype.kind in ("string", "binary"):
         return Column(
             dtype,
@@ -49,13 +61,23 @@ def table_from_numpy(columns: Sequence[Dict], device="cuda") -> Table:
     return Table([column_from_numpy(spec, device) for spec in columns])
 
 
-def column_to_numpy(col: Column) -> Dict:
+def _host(t):
+    return None if t is None else t.cpu().numpy()
+
+
+def column_to_numpy(col) -> Dict:
+    if isinstance(col, ListColumn):
+        return {"list": column_to_numpy(col.child), "offsets": _host(col.offsets),
+                "validity": _host(col.validity)}
+    if isinstance(col, StructColumn):
+        return {"struct": [column_to_numpy(c) for c in col.children], "names": col.names,
+                "validity": _host(col.validity)}
     dt = col.dtype
     return {
         "dtype": (dt.kind, dt.bits, dt.precision, dt.scale),
-        "data": col.data.cpu().numpy(),
-        "validity": None if col.validity is None else col.validity.cpu().numpy(),
-        "offsets": None if col.offsets is None else col.offsets.cpu().numpy(),
+        "data": _host(col.data),
+        "validity": _host(col.validity),
+        "offsets": _host(col.offsets),
     }
 
 

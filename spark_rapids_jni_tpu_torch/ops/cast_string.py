@@ -1,10 +1,10 @@
-"""Spark-exact string -> integer / decimal casts (the port's twin of the
-JAX package's ``ops/cast_string.py``; ``string_to_float`` is a later
-slice).
+"""Spark-exact string -> integer / decimal / float casts (the port's
+twin of the JAX package's ``ops/cast_string.py``).
 
 Behavioral parity with the reference kernels (cast_string.cu
 string_to_integer_kernel:157-244, validate_and_exponent:246-378,
-string_to_decimal_kernel:390-581). Every parser runs over the padded
+string_to_decimal_kernel:390-581; cast_string_to_float.cu
+string_to_float:54-599). Every parser runs over the padded
 char matrix ``int32 [n, L]`` (``columnar/strings.py``) as positional
 algebra: character classes, prefix sums and masked reductions along the
 L axis replace the per-thread state machines, and digit accumulation is
@@ -456,3 +456,255 @@ def string_to_decimal(
     else:
         data = torch.where(negative, -mag[0], mag[0]).to(out_type.torch_dtype)
     return Column(out_type, data, _validity_or_none(valid))
+
+
+# ---------------------------------------------------------------------------
+# string -> float
+# ---------------------------------------------------------------------------
+
+# 10^(32q) for q in 0..10 (inf past 10^308) and 10^r for r in 0..31: the
+# JAX package's two-level decomposition of 10^a, kept so every value is
+# the same (hi*lo double-rounds, <= ~1.5 ulp in f64; the reference
+# computes these with CUDA exp10(), <= 1 ulp, cast_string_to_float.cu:
+# 182-187, so this is the same error class and f32 outputs are
+# unaffected).
+_POW10_HI = tuple(float(10 ** (32 * q)) if 32 * q <= 308 else float("inf") for q in range(11))
+_POW10_LO = tuple(float(10**r) for r in range(32))
+
+
+def _pow10_subneg():
+    from fractions import Fraction
+
+    # 10^(nd10 - 308) for nd10 in 1..20, correctly rounded
+    return tuple(float(Fraction(1, 10 ** (308 - nd10))) for nd10 in range(1, 21))
+
+
+_POW10_SUBNEG = _pow10_subneg()
+# exactly-rounded 10^k, k in [0, 56]: the subnormal branch divides by
+# 10^(nd10-1+shift), and the exponents real data uses take this single
+# correctly rounded table instead of the two-level product
+_POW10_SUB1 = tuple(float(10**k) for k in range(57))
+
+
+def _masked_sel_f64(tbl, idx):
+    """``tbl[idx]`` as float64, 0.0 where ``idx`` is outside the table
+    (the JAX package's masked-select chain; on the card one gather from
+    a small device table gives the same values)."""
+    t = torch.tensor(tbl, dtype=torch.float64, device=idx.device)
+    inside = (idx >= 0) & (idx < len(tbl))
+    got = t[torch.clamp(idx, 0, len(tbl) - 1).long()]
+    return torch.where(inside, got, torch.zeros((), dtype=torch.float64, device=idx.device))
+
+
+def _pow10_pos_f64(a):
+    """10^a for a >= 0 (clipped to [0, 341]; inf past 308): the
+    correctly rounded single table up to a = 56, the hi*lo product
+    above."""
+    a = torch.clamp(a, 0, 341)
+    two_level = _masked_sel_f64(_POW10_HI, a >> 5) * _masked_sel_f64(_POW10_LO, a & 31)
+    # the JAX package's normalisation for the TPU's emulated f64, where
+    # an overflowing finite product gives nan; under IEEE it is inf
+    # already, so this changes nothing
+    two_level = torch.where(torch.isnan(two_level), torch.inf, two_level)
+    return torch.where(a <= 56, _masked_sel_f64(_POW10_SUB1, torch.clamp(a, max=56)), two_level)
+
+
+# the reference keeps up to 19 significant digits (max_safe_digits = 19,
+# ipow[0..18]) and conditionally one more when it still fits max_holding
+_MAX_SAFE_DIGITS = 19
+_MAX_HOLDING = (2**64 - 1 - 9) // 10
+
+
+def _lower(c):
+    return torch.where((c >= ord("A")) & (c <= ord("Z")), c + 32, c)
+
+
+def _u64_to_f64(bits):
+    """Correctly rounded float64 of the uint64 held in int64 ``bits``.
+    Values >= 2^63 (negative bits) halve with the dropped bit kept as a
+    sticky bit, convert, and double: the sticky bit sits below the
+    rounding position, so ties and rounding are decided as for the full
+    value."""
+    half = ((bits >> 1) & 0x7FFFFFFFFFFFFFFF) | (bits & 1)
+    return torch.where(bits < 0, half.to(torch.float64) * 2.0, bits.to(torch.float64))
+
+
+def _parse_float(chars, lengths, in_valid):
+    """Returns (value_f64, valid, except_) per row. Mirrors
+    cast_string_to_float.cu string_to_float<T>:54-599 including its
+    quirks: 'nan' only as the whole 3-char string, inf/infinity must
+    end the string (invalid but NOT an ANSI error), trailing f/F/d/D
+    allowed after digits but not after a zero value, manual exponents
+    capped at 4 digits, 19(+1) significant digit cap with the rest
+    truncated into the exponent.
+
+    The digits are a uint64 held as int64 bits (up to 10^19 + 9 > 2^63),
+    so their compares are unsigned and their float64 is
+    ``_u64_to_f64``. Results below the minimum normal double are IEEE
+    subnormals, as the reference's CUDA doubles give; the JAX package
+    on the CPU flushes them to +-0.0 (its documented deviation, ROADMAP
+    Queue 3)."""
+    n, L = chars.shape
+    dev = chars.device
+    pos, in_str, ws, digit, negative, start = _prologue(chars, lengths, True)
+    lc = _lower(chars)
+
+    def chars_at(idx):
+        return lane_select(lc, torch.clamp(idx, 0, L - 1))
+
+    def word_at(base, word):
+        m = torch.ones((n,), dtype=torch.bool, device=dev)
+        for off, ch in enumerate(word):
+            p = base + off
+            m = m & (p < lengths) & (chars_at(p) == ord(ch))
+        return m
+
+    is_nan = word_at(start, "nan")
+    nan_exact = is_nan & (lengths == 3)
+
+    is_inf3 = word_at(start, "inf")
+    inf3_end = is_inf3 & (start + 3 == lengths)
+    is_inf8 = is_inf3 & word_at(start + 3, "inity")
+    inf8_end = is_inf8 & (start + 8 == lengths)
+    inf_value = inf3_end | inf8_end
+
+    # ---- mantissa: digits with one optional dot ----
+    after = pos >= start[:, None]
+    dot = (chars == ord(".")) & in_str
+    D1 = _first_true(dot & after, L + 1)
+    mant_ok = digit | (pos == D1[:, None])
+    # M = end of the contiguous mantissa run from `start`
+    not_m = after & in_str & ~mant_ok
+    M = torch.minimum(_first_true(not_m, L + 1), lengths)
+    in_mant = after & (pos < M[:, None])
+    mdigit = digit & in_mant
+    has_dot = D1 < M
+
+    k_idx = lane_count(mdigit) - 1
+    nd = mdigit.sum(dim=1, dtype=_I32)
+    pre_dot = (mdigit & (pos < D1[:, None])).sum(dim=1, dtype=_I32)
+    m_nz = mdigit & (chars != ord("0"))
+    fz_pos = _first_true(m_nz, L + 1)
+    first_nz = torch.where(fz_pos <= L, lane_select(k_idx, torch.clamp(fz_pos, 0, L - 1)), nd)
+    stripped = torch.minimum(torch.where(has_dot, pre_dot, nd), first_nz)
+    R = nd - stripped  # real digit count
+    seen_valid_digit = (nd > 0) | (stripped > 0)
+
+    # keep up to 19 digits; maybe one more if it fits under max_holding
+    kept18 = torch.clamp(R, max=_MAX_SAFE_DIGITS)
+    act18 = (
+        mdigit
+        & (k_idx >= stripped[:, None])
+        & (k_idx < (stripped + kept18)[:, None])
+    )
+    exp18 = (stripped + kept18)[:, None] - 1 - k_idx
+    p10_19 = _table([10**i for i in range(19)], dev)
+    w18 = p10_19[torch.clamp(exp18, 0, 18).long()]
+    dv = torch.where(act18, (chars - ord("0")).to(_I64), 0)
+    digits18 = (dv * w18).sum(dim=1)  # uint64 bits, < 10^19
+
+    extra_pos = _first_true(mdigit & (k_idx == (stripped + kept18)[:, None]), L + 1)
+    extra_d = torch.where(
+        extra_pos <= L, lane_select(chars, torch.clamp(extra_pos, 0, L - 1)) - ord("0"), 0
+    ).to(_I64)
+    # (phrased as a division so digits18 * 10 cannot wrap uint64)
+    take_extra = (R > _MAX_SAFE_DIGITS) & ~u128.ult((_MAX_HOLDING - extra_d) // 10, digits18)
+    digits = torch.where(take_extra, digits18 * 10 + extra_d, digits18)
+    kept = kept18 + take_extra.to(_I32)
+    trunc = R - kept
+    decimal_pos = torch.clamp(pre_dot - stripped, min=0)
+    exp_base = trunc - torch.where(has_dot, R - decimal_pos, 0)
+
+    # ---- manual exponent at M ----
+    c_M = chars_at(M)
+    has_e = (M < lengths) & (c_M == ord("e"))
+    c_M1 = chars_at(M + 1)
+    e_sign = has_e & (M + 1 < lengths) & ((c_M1 == ord("+")) | (c_M1 == ord("-")))
+    e_neg = e_sign & (c_M1 == ord("-"))
+    eds = M + 1 + e_sign.to(_I32)
+    in_e4 = (pos >= eds[:, None]) & (pos < (eds + 4)[:, None]) & in_str
+    e_nondigit = _first_true(in_e4 & ~digit, L + 1)
+    ede = torch.minimum(torch.minimum(e_nondigit, eds + 4), lengths)
+    e_ndig = torch.clamp(ede - eds, min=0)
+    e_exp = ede[:, None] - 1 - pos
+    e_act = (pos >= eds[:, None]) & (pos < ede[:, None]) & digit
+    e_w = p10_19[torch.clamp(e_exp, 0, 4).long()]
+    e_val = torch.where(e_act, (chars - ord("0")).to(_I64) * e_w, 0).sum(dim=1)
+    manual_exp = torch.where(has_e, torch.where(e_neg, -e_val, e_val), 0)
+    bad_exp = has_e & (e_ndig == 0)
+
+    # ---- trailing junk ----
+    T0 = torch.where(has_e, ede, M)
+    zero_digits = digits == 0
+    # nonzero: optional single f/F/d/D suffix
+    c_T0 = chars_at(T0)
+    fd = (T0 < lengths) & ((c_T0 == ord("f")) | (c_T0 == ord("d"))) & ~zero_digits
+    T1 = T0 + fd.to(_I32)
+    trailing_junk = ~torch.all(~((pos >= T1[:, None]) & in_str) | ws, dim=1)
+    # a second dot inside what would be the mantissa is caught here too:
+    # the mantissa run stops at it and it becomes trailing junk
+
+    # ---- validity / except composition ----
+    valid = in_valid & (lengths > 0)
+    number_path = ~is_nan & ~is_inf3
+    no_digit = number_path & ~seen_valid_digit
+    bad = no_digit | (number_path & (bad_exp | trailing_junk))
+    valid = valid & ~bad
+    except_ = in_valid & bad
+    # nan
+    valid = torch.where(is_nan, in_valid & nan_exact, valid)
+    except_ = torch.where(is_nan, in_valid & ~nan_exact, except_)
+    # inf: invalid with trailing garbage, but never an ANSI error
+    valid = torch.where(is_inf3, in_valid & inf_value, valid)
+    except_ = except_ & ~is_inf3
+
+    # ---- value assembly (float64, reference lines 150-195) ----
+    exp_ten = (exp_base + manual_exp).to(_I32)
+    digitsf = _u64_to_f64(digits)
+    signf = torch.where(negative, -1.0, 1.0).to(torch.float64)
+
+    # digit count of `digits` (unsigned: bits >= 2^63 exceed every power)
+    nd10 = ((digits[:, None] < 0) | (digits[:, None] >= p10_19[None, :])).sum(dim=1, dtype=_I32)
+    shift = -307 - exp_ten
+    subnormal = shift > 0
+    # subnormal: digits / 10^(nd10-1+shift) * 10^(exp_ten+nd10-1+shift);
+    # both factors read from the exactly rounded tables (the second
+    # exponent is always nd10 - 308); shift > 36 means the true
+    # magnitude is below the min subnormal
+    sub_val = (
+        digitsf / _masked_sel_f64(_POW10_SUB1, torch.clamp(nd10 - 1 + shift, 0, 56))
+    ) * _masked_sel_f64(_POW10_SUBNEG, nd10 - 1)
+    sub_val = torch.where(shift > 36, 0.0, sub_val)
+    p_abs = _pow10_pos_f64(torch.abs(exp_ten))
+    norm_val = torch.where(exp_ten < 0, digitsf / p_abs, digitsf * p_abs)
+    value = torch.where(subnormal, sub_val, norm_val)
+    # the JAX package's TPU normalisation (no legitimate nan arises
+    # here: the nan literal is applied below); unchanged under IEEE
+    value = torch.where(torch.isnan(value), torch.inf, value)
+    value = torch.where(exp_ten > 308, torch.inf, value)
+    value = torch.where(zero_digits, 0.0, value)
+    value = signf * value
+    value = torch.where(inf_value, signf * torch.inf, value)
+    value = torch.where(is_nan & nan_exact, torch.nan, value)
+    return value, valid, except_
+
+
+def string_to_float(
+    col: Column,
+    out_type: DType,
+    ansi_mode: bool = False,
+    width: Optional[int] = None,
+) -> Column:
+    """CastStrings.toFloat (CastStrings.java:91,
+    cast_string_to_float.cu string_to_float:656). Computes in float64
+    and narrows, as the reference's double-math-then-cast does.
+    ``width`` pins the char-matrix width (see string_to_integer)."""
+    if out_type.kind != "float":
+        raise TypeError(f"not a float type: {out_type}")
+    _check_width_eager(col, width)
+    chars, lengths = to_char_matrix(col, width)
+    value, valid, except_ = _parse_float(chars, lengths, col.validity_or_true())
+    if ansi_mode:
+        _raise_first_error(col, except_)
+    value = torch.where(valid, value, 0.0).to(out_type.torch_dtype)
+    return Column(out_type, value, _validity_or_none(valid))

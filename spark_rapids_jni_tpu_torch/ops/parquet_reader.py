@@ -1,12 +1,11 @@
 """Chunked Parquet reader: native host page decode feeding device columns
-(the port's twin of the flat path of the JAX package's
-``ops/parquet_reader.py``).
+(the port's twin of the JAX package's ``ops/parquet_reader.py``).
 
 BASELINE.md staged config 4 ("Parquet chunked reader + CastStrings /
 get_json_object"). The host C++ of ``native/parquet_pages.cpp`` (thrift
 page headers, snappy, gzip, RLE / bit-packed, dictionaries) decodes each
 column chunk into dense numpy buffers; this module moves them to the
-device as ``Column``s, one row group at a time. Each row group is one
+device as columns, one row group at a time. Each row group is one
 chunk: ``iter_row_groups`` streams them (the chunked-reader contract,
 bounded memory), ``read_table`` concatenates.
 
@@ -16,10 +15,13 @@ Type mapping:
   DOUBLE->FLOAT64, BYTE_ARRAY->STRING, FIXED_LEN_BYTE_ARRAY(decimal)->
   DECIMAL128 (big-endian unscaled -> [lo, hi] int64 limbs).
 
-Only flat schemas are read here: a nested root (a repeated field or a
-struct/list/map group) raises ``NotImplementedError``. The Dremel record
-assembly of the JAX package is ROADMAP Queue 1's "nested Parquet
-assembly with columnar/nested.py" item.
+Nested roots (structs at any depth, maps as list<struct<key, value>>,
+multi-level lists, legacy two-level repeated fields) assemble on the
+host from the decoder's per-level-entry (value, def, rep) streams by
+Dremel record assembly (``_typed_tree`` / ``_assemble_node``), into the
+numpy interop form of ``columnar/interop.py``; the leaves then go to the
+device as the flat columns do, as ``ListColumn`` / ``StructColumn``
+trees (``columnar/nested.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import ctypes
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
 
 from ..columnar.column import resolve_device
 from ..columnar.dtypes import (
@@ -45,6 +48,7 @@ from ..columnar.dtypes import (
     TIMESTAMP_MICROS,
 )
 from ..columnar.interop import table_from_numpy
+from ..columnar.nested import ListColumn, StructColumn
 from ..columnar.table import Table
 from ..runtime import native
 from .parquet_footer import ParquetFooter, StructElement
@@ -58,12 +62,6 @@ _CT_UTF8, _CT_ENUM, _CT_DECIMAL, _CT_DATE = 0, 4, 5, 6
 _CT_TIMESTAMP_MILLIS, _CT_TIMESTAMP_MICROS = 9, 10
 _CT_INT_8, _CT_INT_16, _CT_INT_32, _CT_INT_64 = 15, 16, 17, 18
 _CT_MAP, _CT_MAP_KEY_VALUE, _CT_LIST = 1, 2, 3
-_REPEATED = 2
-
-_NESTED_TODO = (
-    "nested Parquet columns are not ported yet (ROADMAP.md Queue 1: the "
-    "nested Parquet assembly with columnar/nested.py)"
-)
 
 
 def _read_footer_bytes(path: str) -> bytes:
@@ -223,6 +221,248 @@ def _spec_rows(spec: Dict) -> int:
     return len(spec["data"])
 
 
+# ---------------------------------------------------------------------------
+# Dremel record assembly: structs at any depth, maps, multi-level lists.
+# The decoder exposes per-level-entry (values, def, rep) streams of each
+# leaf; the host rebuilds the nested columns from them in numpy.
+# ---------------------------------------------------------------------------
+
+
+class _PNode:
+    """One pruned-schema node with cumulative Dremel levels."""
+
+    __slots__ = (
+        "name", "children", "repetition", "converted", "max_def", "max_rep", "leaf_idx",
+    )
+
+    def __init__(self, name, repetition, converted, max_def, max_rep):
+        self.name = name
+        self.children = []
+        self.repetition = repetition  # 0 required, 1 optional, 2 repeated
+        self.converted = converted
+        self.max_def = max_def
+        self.max_rep = max_rep
+        self.leaf_idx = None
+
+
+def _typed_tree(nodes) -> List[_PNode]:
+    """Schema-tree nodes -> typed roots with (max_def, max_rep) and DFS
+    leaf indices (leaf order == flat column order, the parquet
+    contract)."""
+    pos = [0]
+    leaf = [0]
+
+    def build(d: int, r: int) -> _PNode:
+        name, nch, rep, conv = nodes[pos[0]]
+        pos[0] += 1
+        d2 = d + (1 if rep != 0 else 0)
+        r2 = r + (1 if rep == 2 else 0)
+        node = _PNode(name, rep, conv, d2, r2)
+        if nch == 0:
+            node.leaf_idx = leaf[0]
+            leaf[0] += 1
+        else:
+            node.children = [build(d2, r2) for _ in range(nch)]
+        return node
+
+    roots = []
+    while pos[0] < len(nodes):
+        roots.append(build(0, 0))
+    return roots
+
+
+def _subtree_leaves(node: _PNode) -> int:
+    if node.leaf_idx is not None:
+        return 1
+    return sum(_subtree_leaves(c) for c in node.children)
+
+
+def _decode_leaf_arrays(lib, data: bytes, info: dict) -> dict:
+    """Per-level-entry streams of one leaf chunk: ``defs`` / ``reps``
+    int32 [nv], plus values: fixed-width one slot per entry, strings as
+    (payload bytes, per-entry lengths)."""
+    handle = lib.spark_pq_decode_chunk(
+        data, len(data), info["type"], info["type_length"], info["codec"],
+        info["max_def"], info["max_rep"],
+    )
+    if not handle:
+        raise RuntimeError(lib.spark_pq_last_error().decode("utf-8", "replace"))
+    dt = _dtype_for(info)
+    with _DecodedChunk(lib, handle) as ch:
+        nv = ch.num_values()
+        if nv != info["num_values"]:
+            raise RuntimeError(
+                f"nested column decoded {nv} of {info['num_values']} level entries"
+            )
+        n = ctypes.c_int64()
+        dp = lib.spark_pq_def_levels(ch._h, ctypes.byref(n))
+        if n.value:
+            defs = np.ctypeslib.as_array(dp, (n.value,)).copy()
+        elif info["max_def"] <= 1:
+            # flat/shallow leaf: the decoder kept only element validity
+            v = ch.validity()
+            defs = (
+                np.full(nv, info["max_def"], np.int32)
+                if v is None
+                else v.astype(np.int32) * info["max_def"]
+            )
+        else:
+            raise RuntimeError("decoder retained no def levels")
+        rp = lib.spark_pq_rep_levels(ch._h, ctypes.byref(n))
+        reps = (
+            np.ctypeslib.as_array(rp, (n.value,)).copy() if n.value else np.zeros(nv, np.int32)
+        )
+        out = {"dt": dt, "defs": defs, "reps": reps}
+        if dt.kind == "string":
+            out["payload"] = ch.values()
+            out["lens"] = np.diff(ch.offsets())
+        else:
+            raw = ch.values()
+            if dt.num_limbs == 2:
+                out["values"] = _flba_to_limbs(raw, info["type_length"])
+            elif info["type"] == _PT_INT96:
+                out["values"] = _int96_to_micros(raw)
+            else:
+                host = raw.view(dt.np_dtype)
+                if info["converted"] == _CT_TIMESTAMP_MILLIS:
+                    host = host * 1000
+                out["values"] = host
+        return out
+
+
+def _leaf_column(node: _PNode, la: dict, base_def: int) -> Dict:
+    """A leaf's entries (one per instance slot) in the interop form."""
+    dt = la["dt"]
+    valid = None
+    if node.max_def > base_def:
+        v = la["defs"] >= node.max_def
+        if not v.all():
+            valid = v
+    spec = {"dtype": (dt.kind, dt.bits, dt.precision, dt.scale), "validity": valid,
+            "offsets": None}
+    if dt.kind == "string":
+        # non-element slots are zero-length, so the payload already holds
+        # exactly the element bytes in order
+        offs = np.zeros(len(la["lens"]) + 1, np.int32)
+        np.cumsum(la["lens"], out=offs[1:])
+        spec["data"], spec["offsets"] = la["payload"], offs
+    else:
+        spec["data"] = la["values"]
+    return spec
+
+
+def _filter_leaf(la: dict, mask: np.ndarray) -> dict:
+    out = {"dt": la["dt"], "defs": la["defs"][mask], "reps": la["reps"][mask]}
+    if "lens" in la:
+        out["payload"] = la["payload"]  # dropped slots are 0-length
+        out["lens"] = la["lens"][mask]
+    else:
+        out["values"] = la["values"][mask]
+    return out
+
+
+def _list_offsets(la0: dict, base_rep: int, r_elem: int, d_rep: int):
+    """(int32 offsets [n+1], instance-slot mask) of one list level from
+    its first leaf's streams: an instance slot starts where the
+    repetition returns to ``base_rep`` or above; an ELEMENT starts where
+    it returns to ``r_elem`` or above (deeper entries continue the same
+    element) and the definition depth says it exists."""
+    defs0, reps0 = la0["defs"], la0["reps"]
+    inst = reps0 <= base_rep
+    elem0 = (reps0 <= r_elem) & (defs0 >= d_rep)
+    counts = np.add.reduceat(elem0, np.flatnonzero(inst)) if len(defs0) else np.zeros(0, np.int64)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32), inst
+
+
+def _assemble_node(node: _PNode, leaves: List[dict], base_rep: int, base_def: int,
+                   as_element: bool = False) -> Dict:
+    """Assemble one schema subtree into the interop form; ``leaves``
+    hold this subtree's level-entry streams filtered to exactly one
+    entry per instance slot of the enclosing container. ``as_element``
+    marks a repeated node whose repetition the caller (a LIST/MAP
+    wrapper) already consumed."""
+    if node.repetition == 2 and not as_element:
+        # bare repeated field (legacy 2-level lists, protobuf-style
+        # writers): an implicit list<node> with no LIST wrapper group;
+        # def >= max_def means >= 1 element, below it the list is empty
+        # (nullness, if any, belongs to an optional ancestor)
+        d_rep = node.max_def
+        offsets, _inst = _list_offsets(leaves[0], base_rep, node.max_rep, d_rep)
+        child_leaves = [_filter_leaf(la, la["defs"] >= d_rep) for la in leaves]
+        elem = _assemble_node(node, child_leaves, node.max_rep, d_rep, as_element=True)
+        return {"list": elem, "offsets": offsets, "validity": None}
+
+    if node.leaf_idx is not None:
+        return _leaf_column(node, leaves[0], base_def)
+
+    if node.converted in (_CT_LIST, _CT_MAP, _CT_MAP_KEY_VALUE):
+        rep_child = node.children[0]
+        if rep_child.repetition != 2:
+            raise RuntimeError("unsupported LIST/MAP shape (no repeated group)")
+        d_rep, r_elem = rep_child.max_def, rep_child.max_rep
+        offsets, inst = _list_offsets(leaves[0], base_rep, r_elem, d_rep)
+        defs0 = leaves[0]["defs"]
+        lvalid = defs0[inst] >= node.max_def if len(defs0) else np.zeros(0, bool)
+        child_leaves = [_filter_leaf(la, la["defs"] >= d_rep) for la in leaves]
+        if node.converted != _CT_LIST:  # map: repeated key_value struct
+            if len(rep_child.children) != 2:
+                raise RuntimeError("unsupported MAP shape")
+            elem = _assemble_struct(rep_child, child_leaves, r_elem, d_rep)
+        elif rep_child.leaf_idx is None and len(rep_child.children) != 1:
+            # repeated group with several fields = list<struct<...>>
+            elem = _assemble_struct(rep_child, child_leaves, r_elem, d_rep)
+        else:
+            # 3-level list, or a legacy 2-level repeated leaf
+            elem_node = rep_child if rep_child.leaf_idx is not None else rep_child.children[0]
+            elem = _assemble_node(
+                elem_node, child_leaves, r_elem, d_rep, as_element=elem_node is rep_child
+            )
+        return {"list": elem, "offsets": offsets,
+                "validity": None if lvalid.all() else lvalid}
+
+    return _assemble_struct(node, leaves, base_rep, base_def)
+
+
+def _assemble_struct(node: _PNode, leaves: List[dict], base_rep: int, base_def: int) -> Dict:
+    """Struct (or repeated-group element struct): children keep the
+    parent's entry alignment; nullness comes from the definition depth
+    of any descendant leaf."""
+    children, names, k = [], [], 0
+    for ch in node.children:
+        w = _subtree_leaves(ch)
+        children.append(_assemble_node(ch, leaves[k : k + w], base_rep, node.max_def))
+        names.append(ch.name)
+        k += w
+    validity = None
+    if node.repetition == 1 and node.max_def > base_def:
+        # one sample per instance slot: a child list's leaf stream has
+        # several entries per instance, so filter to instance starts
+        la0 = leaves[0]
+        v = la0["defs"][la0["reps"] <= base_rep] >= node.max_def
+        if not v.all():
+            validity = v
+    return {"struct": children, "names": tuple(names), "validity": validity}
+
+
+def _concat(parts):
+    """Concatenate the row-group parts of one column: flat, list or
+    struct (recursively)."""
+    first = parts[0]
+    if not isinstance(first, (ListColumn, StructColumn)):
+        return _concat_col(parts)
+    validity = None
+    if any(p.validity is not None for p in parts):
+        validity = torch.cat([p.validity_or_true() for p in parts])
+    if isinstance(first, StructColumn):
+        kids = [_concat([p.children[i] for p in parts]) for i in range(len(first.children))]
+        return StructColumn(tuple(kids), validity, first.names)
+    offs, base = [first.offsets[:1]], 0
+    for p in parts:
+        offs.append(p.offsets[1:] + base)
+        base += int(p.offsets[-1])
+    return ListColumn(torch.cat(offs), _concat([p.child for p in parts]), validity)
+
+
 class ParquetReader:
     """Chunked reader over one parquet file; each row group is a chunk.
 
@@ -256,12 +496,11 @@ class ParquetReader:
                 self._lib.spark_pf_last_error().decode("utf-8", "replace")
             )
         self.num_columns = self.footer.get_num_columns()
+        # typed tree of the PRUNED schema (leaf order == flat column
+        # order): drives the record assembly of nested roots.
         # serialize_thrift_file frames as PAR1 + thrift + len + PAR1
         pruned = self.footer.serialize_thrift_file()[4:-8]
-        for name, nch, rep, _conv in _schema_tree(pruned):
-            if nch or rep == _REPEATED:
-                self.close()
-                raise NotImplementedError(f"column {name!r}: {_NESTED_TODO}")
+        self._roots = _typed_tree(_schema_tree(pruned))
 
     def _chunk_info(self, rg: int, col: int) -> dict:
         out = (ctypes.c_int64 * 12)()
@@ -287,21 +526,37 @@ class ParquetReader:
 
     def read_row_group_host(self, rg: int) -> List[Dict]:
         """Row group ``rg`` decoded on the host: one numpy interop dict
-        per column (``columnar/interop.py``), nothing on the device."""
+        per root column (``columnar/interop.py``; nested roots as list /
+        struct dicts), nothing on the device."""
         specs = []
+        ci = 0
         with open(self.path, "rb") as f:
-            for ci in range(self.num_columns):
-                info = self._chunk_info(rg, ci)
+
+            def read_chunk(idx):
+                info = self._chunk_info(rg, idx)
                 f.seek(info["offset"])
-                spec = _decode_column(self._lib, f.read(info["size"]), info)
-                # a truncated/corrupt chunk must not shrink the table
-                # silently: the footer count is the contract
-                if _spec_rows(spec) != info["num_values"]:
-                    raise RuntimeError(
-                        f"column {ci} of row group {rg} decoded "
-                        f"{_spec_rows(spec)} of {info['num_values']} values"
-                    )
+                return f.read(info["size"]), info
+
+            for root in self._roots:
+                nleaves = _subtree_leaves(root)
+                if root.leaf_idx is not None and root.max_rep == 0:
+                    data, info = read_chunk(ci)
+                    spec = _decode_column(self._lib, data, info)
+                    # a truncated/corrupt chunk must not shrink the table
+                    # silently: the footer count is the contract
+                    if _spec_rows(spec) != info["num_values"]:
+                        raise RuntimeError(
+                            f"column {ci} of row group {rg} decoded "
+                            f"{_spec_rows(spec)} of {info['num_values']} values"
+                        )
+                else:
+                    leaves = [
+                        _decode_leaf_arrays(self._lib, *read_chunk(ci + k))
+                        for k in range(nleaves)
+                    ]
+                    spec = _assemble_node(root, leaves, 0, 0)
                 specs.append(spec)
+                ci += nleaves
         return specs
 
     def read_row_group(self, rg: int) -> Table:
@@ -416,5 +671,5 @@ def read_table(
         raise ValueError(f"no row groups selected in {path}")
     if len(parts) == 1:
         return parts[0]
-    cols = [_concat_col([p.columns[i] for p in parts]) for i in range(parts[0].num_columns)]
+    cols = [_concat([p.columns[i] for p in parts]) for i in range(parts[0].num_columns)]
     return Table(cols, parts[0].names)

@@ -18,6 +18,14 @@ from __future__ import annotations
 import torch
 
 
+def next_pow2(x: int) -> int:
+    """The least power of two >= ``x`` (1 for ``x <= 1``)."""
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
 def ragged_unpack(data: torch.Tensor, starts: torch.Tensor, L: int) -> torch.Tensor:
     """``out[i, j] = data[starts[i] + j]`` for j < L, zero past the
     buffer end. Rows are not masked by per-row lengths: callers apply

@@ -57,6 +57,98 @@ def lane_count(flags: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(flags.to(torch.int32), dim=1, dtype=torch.int32)
 
 
+def _shifted_ext(x: torch.Tensor, is_max: bool, rev: bool) -> torch.Tensor:
+    """Running max / min along the last axis in log2(L) shifted
+    ``torch.maximum`` / ``torch.minimum`` steps; ``rev`` for the suffix
+    form."""
+    L = x.shape[-1]
+    op = torch.maximum if is_max else torch.minimum
+    k = 1
+    while k < L:
+        y = x.clone()
+        if rev:
+            op(x[..., :-k], x[..., k:], out=y[..., :-k])
+        else:
+            op(x[..., k:], x[..., :-k], out=y[..., k:])
+        x = y
+        k *= 2
+    return x
+
+
+def lane_ext(x: torch.Tensor, is_max: bool, rev: bool = False) -> torch.Tensor:
+    """Running max / min along the last axis (``lax.cummax`` /
+    ``lax.cummin``, ``reverse=rev``): shifted steps up to
+    ``LANE_SCAN_MAX_L``, torch's own ``cummax`` / ``cummin`` above."""
+    if x.shape[-1] <= LANE_SCAN_MAX_L:
+        return _shifted_ext(x, is_max, rev)
+    scan = torch.cummax if is_max else torch.cummin
+    if rev:
+        return scan(x.flip(-1), dim=-1).values.flip(-1)
+    return scan(x, dim=-1).values
+
+
+def associative_scan(comb, x: torch.Tensor, axis: int = -1, rev: bool = False) -> torch.Tensor:
+    """Inclusive scan of the associative ``comb`` along ``axis``,
+    Hillis-Steele: log2(L) steps, each combining every position with the
+    partial result k positions before it (after it, for ``rev``), the
+    earlier operand first as in ``lax.associative_scan``. The combines
+    the port scans are exact integer monoids, so any association order
+    gives the same ids."""
+    x = x.movedim(axis, -1)
+    L = x.shape[-1]
+    k = 1
+    while k < L:
+        y = x.clone()
+        if rev:
+            y[..., :-k] = comb(x[..., k:], x[..., :-k])
+        else:
+            y[..., k:] = comb(x[..., :-k], x[..., k:])
+        x = y
+        k *= 2
+    return x.movedim(-1, axis)
+
+
+_scan_barriers = 0  # running count of lane_scan barriers (see below)
+
+
+def scan_barrier_count() -> int:
+    """Number of ``lane_scan`` barriers run so far. Counts BARRIERS, not
+    lanes: one call is one dependency stage whose lanes are mutually
+    independent."""
+    return _scan_barriers
+
+
+def lane_scan(lanes, axis: int = -1):
+    """ONE scan barrier running several INDEPENDENT scans as lanes. Each
+    lane is ``(combine, x, rev)``: ``combine`` an associative
+    elementwise function, ``x`` the lane's tensor, ``rev`` True for a
+    suffix scan. Returns the per-lane inclusive scan results, as the JAX
+    package's ``lane_scan`` does: ``torch.maximum`` / ``torch.minimum``
+    lanes run ``lane_ext``, any other combine ``associative_scan``."""
+    global _scan_barriers
+    _scan_barriers += 1
+    outs = []
+    for comb, x, rev in lanes:
+        if comb is torch.maximum or comb is torch.minimum:
+            outs.append(lane_ext(x.movedim(axis, -1), comb is torch.maximum, rev).movedim(-1, axis))
+        else:
+            outs.append(associative_scan(comb, x, axis, rev))
+    return outs
+
+
+def stacked_monoid_combine(comp_flat, base, mk):
+    """Associative combine for K monoid scans stacked as lanes of one
+    element-id tensor: lane k's local ids compose through its own table
+    at ``base[k] + a * mk[k] + b`` in the concatenated compose tables
+    ``comp_flat`` (``base`` / ``mk`` broadcast over the stacked leading
+    axis), one gather per combine step."""
+
+    def comb(a, b):
+        return comp_flat[(base + a * mk + b).long()]
+
+    return comb
+
+
 def seg_ids_from_boundary(boundary: torch.Tensor) -> torch.Tensor:
     """bool [n] run-start flags -> int32 [n] nondecreasing segment ids
     starting at 0 (boundary[0] must be True for nonempty input)."""

@@ -4,10 +4,26 @@ copy of the JAX package's ``runtime/errors.py``).
 ``CastException`` carries the offending string and row number, as the
 reference's CastException does across the JNI boundary
 (CastException.java, CastStringJni.cpp CATCH_CAST_EXCEPTION), so a
-caller can report exactly which input row failed a strict-mode cast.
+caller can report exactly which input row failed a strict-mode cast;
+``JsonParsingException`` carries the row and text of the first
+malformed from_json document.
 """
 
 from __future__ import annotations
+
+
+class JsonParsingException(RuntimeError):
+    """Malformed JSON input to from_json, carrying the offending row and
+    its text (the reference's error-context dump, map_utils.cu
+    throw_if_error:109-139, prints +-100 chars around the first error
+    token)."""
+
+    def __init__(self, row_with_error: int, context: str):
+        super().__init__(
+            f"JSON generates parsing errors at row {row_with_error}: {context!r}"
+        )
+        self.row_with_error = row_with_error
+        self.context = context
 
 
 class CastException(RuntimeError):

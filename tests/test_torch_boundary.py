@@ -197,3 +197,52 @@ def test_read_table_default_device_is_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         read_table(path)
     assert read_table(path, device="cpu").num_rows == 100
+
+
+# The modules of the slice that finishes config 4's string layer (the
+# float cast, from_json and the nested Parquet assembly), imported the
+# same way.
+STRING_LAYER_MODULES = [
+    ("spark_rapids_jni_tpu_torch.columnar.nested", "ListColumn"),
+    ("spark_rapids_jni_tpu_torch.runtime.errors", "JsonParsingException"),
+    ("spark_rapids_jni_tpu_torch.ops.ragged", "next_pow2"),
+    ("spark_rapids_jni_tpu_torch.ops.cast_string", "string_to_float"),
+    ("spark_rapids_jni_tpu_torch.regex.compile", "scalar_token_monoid"),
+    ("spark_rapids_jni_tpu_torch.ops._strategy", "scan_strategy"),
+    ("spark_rapids_jni_tpu_torch.ops.segmented", "lane_scan"),
+    ("spark_rapids_jni_tpu_torch.ops._json_scans", "deep_grammar_errors"),
+    ("spark_rapids_jni_tpu_torch.ops.map_utils", "from_json"),
+    ("spark_rapids_jni_tpu_torch.ops.parquet_reader", "_assemble_node"),
+    ("spark_rapids_jni_tpu_torch.api", "MapUtils"),
+]
+
+
+@pytest.mark.parametrize("module,attr", STRING_LAYER_MODULES)
+def test_string_layer_module_imports_without_jax(module, attr):
+    test_q5_slice_module_imports_without_jax(module, attr)
+
+
+STRING_LAYER_ENTRIES = {
+    "toFloat": lambda col: port.api.CastStrings.toFloat(col, False, port.FLOAT64),
+    "extractRawMapFromJsonString": lambda col: port.api.MapUtils.extractRawMapFromJsonString(col),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STRING_LAYER_ENTRIES))
+def test_string_layer_entry_default_device_is_cuda(name):
+    """The float cast and from_json run where their column lies, and a
+    column lies on the card unless the caller asks for the CPU: without
+    a card the default raises instead of computing on the CPU."""
+    import spark_rapids_jni_tpu_torch.api  # noqa: F401
+
+    entry = STRING_LAYER_ENTRIES[name]
+    rows = ['{"a": "1.5"}', None] if name != "toFloat" else ["1.5", None]
+    if torch.cuda.is_available():
+        out = entry(port.Column.from_pylist(rows, port.STRING))
+        assert out.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry(port.Column.from_pylist(rows, port.STRING))
+    out = entry(port.Column.from_pylist(rows, port.STRING, device="cpu"))
+    assert out.device.type == "cpu"
+    assert out.to_pylist()[1] is None

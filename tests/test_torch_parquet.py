@@ -166,19 +166,6 @@ def test_footer_matches_jax(files):
         ppf.ParquetFooter.read_and_filter(b"not a footer", psch)
 
 
-def test_nested_schema_raises(tmp_path):
-    path = str(tmp_path / "nested.parquet")
-    pq.write_table(pa.table({
-        "x": pa.array([1, 2], pa.int32()),
-        "l": pa.array([[1], [2, 3]], pa.list_(pa.int32())),
-    }), path)
-    with pytest.raises(NotImplementedError, match="nested Parquet"):
-        ppr.read_table(path, device="cpu")
-    # pruned to its flat column, the same file reads
-    sch = ppf.StructElement().add_child("x", ppf.ValueElement())
-    assert ppr.read_table(path, sch, device="cpu").columns[0].to_pylist() == [1, 2]
-
-
 def _np_char_chunk(n, seed):
     """sf10_store_sales.py gen_chunk's string columns, built with np.char
     exactly as the benchmark builds them."""

@@ -77,9 +77,9 @@ def test_chain_matches_jax(store_sales):
     compiles), the DECIMAL32 sum's type included."""
     from spark_rapids_jni_tpu.ops.parquet_reader import read_table as jread_table
     from spark_rapids_jni_tpu_torch import INT32
-    from spark_rapids_jni_tpu_torch.api import (
-        Aggregation, CastStrings, Filter, JSONUtils, read_table,
-    )
+    from spark_rapids_jni_tpu_torch.api import Aggregation, Filter, read_table
+    from spark_rapids_jni_tpu_torch.ops.cast_string import string_to_decimal, string_to_integer
+    from spark_rapids_jni_tpu_torch.ops.get_json_object import get_json_object
 
     path, oracles = store_sales
     jt, pt = jread_table(path), read_table(path, device="cpu")
@@ -87,9 +87,9 @@ def test_chain_matches_jax(store_sales):
     want = _jax_chain(jt)
     w = chip_smoke.SS_WIDTHS
     c = pt.columns
-    qty = CastStrings.toInteger(c[1], False, True, INT32, width=w[0])
-    price = CastStrings.toDecimal(c[2], False, True, 9, 2, width=w[1])
-    channel = JSONUtils.getJsonObject(c[3], "$.channel", width=w[2])
+    qty = string_to_integer(c[1], INT32, strip=True, width=w[0])
+    price = string_to_decimal(c[2], 9, 2, strip=True, width=w[1])
+    channel = get_json_object(c[3], "$.channel", width=w[2])
     assert_same_table(want["casts"], Table([qty, price, channel]))
     keep = chip_smoke.string_equals(channel, "web") & price.validity_or_true()
     filtered = Filter.apply(Table([c[0], qty, price, channel]), keep)
