@@ -85,7 +85,24 @@ Phases, each fatal on failure:
      STRUCT<INT64, STRING> and MAP<STRING, STRING> (nulls and empties at
      every level; definition and repetition levels) read on the card and
      on the CPU, both exact against the generator; decode and h2d ms
-  17. one JSON line of kernel numbers (with murmur3's launches on every
+  17. rung 4 through the streamed scan: ScanPlan over phase 12's file ->
+     prefetch_chunks (default workers, depth 2; decode threads, pinned
+     copies on a side stream) -> the store_sales chain, every row group
+     and the totals exact, in turns with the synchronous read loop (both
+     end-to-end rows/s), the scan metrics, the decode pool size and the
+     machine's cores, peak memory, and scan_chunks once more
+  18. Regex at benchmarks/regex_scan.py's axes (rlike over 1 Mi narrow
+     rows for its four patterns and 256 Ki wide rows; regexp_extract over
+     256 Ki rows), under serial and monoid (extraction also unbatched),
+     every row exact against Python re; ms, rows/s, torch ops; then card
+     against CPU over mixed rows (nulls, empties, line terminators,
+     anchors, lazy quantifiers, a 70-position pattern) and the
+     fingerprints against the JAX package's strings
+  19. ZOrder on rung 1's 4 Mi-row lineitem batch: interleaveBits over the
+     three INT64 keys, interleaveBits and hilbertIndex(10) over their
+     INT32 range ids in [0, 1000), with and without nulls, exact against
+     numpy oracles; ms, rows/s and the share of the byte bound
+  20. one JSON line of kernel numbers (with murmur3's launches on every
      path: 1 on rung 1, 0 on the others), the card line, then the verdict
 
 Exits non-zero, printing no verdict, without a card or without the port
@@ -1626,7 +1643,8 @@ def store_sales_sf10(counters, card, path, rows=SS_ROWS, rg_rows=SS_RG):
     ``path`` (phase 15 reads it again), read back through the port's
     reader and run through the query, every row group and the folded
     totals exactly equal to the oracle; end-to-end and device-chain
-    rows/s, per-stage ms, ops, a profile, peak memory."""
+    rows/s, per-stage ms, ops, a profile, peak memory. Returns the
+    kernel launches and the per-row-group oracles (phase 17's)."""
     from spark_rapids_jni_tpu_torch.api import ParquetReader
     from spark_rapids_jni_tpu_torch.columnar.interop import table_from_numpy
     from spark_rapids_jni_tpu_torch.kernels import _build
@@ -1704,7 +1722,7 @@ def store_sales_sf10(counters, card, path, rows=SS_ROWS, rg_rows=SS_RG):
           f"bytes; card: {card}", flush=True)
     del resident
     scan_forms()
-    return launches
+    return launches, oracles
 
 
 # ---- float casts, from_json and nested Parquet (the rest of config 4's
@@ -2357,6 +2375,484 @@ def nested_parquet(counters, card, path, n=NESTED_ROWS):
     return launches
 
 
+# ---- the streamed scan, Regex and ZOrder (phases 17-19) ----
+
+SS_COLUMNS = [name for name, _ in SS_SCHEMA]  # the four columns ss_chain reads
+
+
+def ss_run_chunks(chunks, oracles, label):
+    """ss_chain over each chunk of an iterator of store_sales row groups,
+    every row group and the folded totals exact against the oracles;
+    returns the number of rows."""
+    total, want, rows = {}, {}, 0
+    for o in oracles:
+        ss_fold(want, o)
+    rg = -1
+    for rg, t in enumerate(chunks):
+        part = ss_result(ss_chain(t))
+        if rg >= len(oracles) or part != oracles[rg]:
+            raise AssertionError(f"{label}: row group {rg} differs from the oracle")
+        ss_fold(total, part)
+        rows += t.num_rows
+    if rg + 1 != len(oracles) or total != want:
+        raise AssertionError(f"{label}: {rg + 1} row groups, folded totals "
+                             f"{'equal' if total == want else 'differ'}")
+    return rows
+
+
+def scan_sf10(counters, card, path, oracles):
+    """Phase 17: rung 4 through the streamed scan. ScanPlan over phase
+    12's SF10 file -> prefetch_chunks (default workers, depth 2) ->
+    ss_chain -> ss_fold, every row group and the totals exact, in turns
+    with phase 12's synchronous read loop (sync, prefetched, prefetched,
+    sync); then the scan's metrics, the pool size and the card
+    machine's cores, the peak device memory, the same scan at depth =
+    workers, scan_chunks once more, and one row group's copy pageable
+    against page-locked."""
+    from spark_rapids_jni_tpu_torch.api import ParquetReader, ScanPlan, prefetch_chunks, scan_chunks
+    from spark_rapids_jni_tpu_torch.columnar.interop import table_from_numpy
+    from spark_rapids_jni_tpu_torch.runtime import metrics
+    from spark_rapids_jni_tpu_torch.runtime.scan import default_workers
+
+    def sync():
+        with ParquetReader(path) as r:
+            return ss_run_chunks((r.read_row_group(g) for g in range(r.num_row_groups)),
+                                 oracles, "synchronous read")
+
+    def pow2_payloads(chunks):
+        for t in chunks:
+            for c in t.columns:
+                size = int(c.data.shape[0])
+                if c.is_varlen and (size < 8 or size & (size - 1)):
+                    raise AssertionError(f"chunk payload of {size} bytes is not a power of two")
+            yield t
+
+    def prefetched(depth=2, workers=None):
+        with ScanPlan(path, columns=SS_COLUMNS) as plan:
+            gen = prefetch_chunks(plan, depth=depth, workers=workers)
+            try:
+                return ss_run_chunks(pow2_payloads(gen), oracles, f"prefetched depth {depth}")
+            finally:
+                gen.close()
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = fn(*args)
+        torch.cuda.synchronize()
+        return rows, time.perf_counter() - t0
+
+    workers = default_workers()
+    rates = {"sync": [], "prefetched": []}
+    launches = None
+    for kind in ("sync", "prefetched", "prefetched", "sync"):
+        if kind == "prefetched" and launches is None:
+            metrics.reset()
+            torch.cuda.reset_peak_memory_stats()
+            for name in counters:
+                counters[name].launches = 0
+            rows, s = timed(prefetched)
+            torch.cuda.synchronize()
+            launches = {name: c.launches for name, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated()
+            stall = metrics.timer_stats("scan.stall_ms")
+            depth_gauge = metrics.gauge_value("scan.prefetch_depth")
+            bytes_read = metrics.counter_value("scan.bytes_read")
+        else:
+            rows, s = timed(sync if kind == "sync" else prefetched)
+        rates[kind].append(rows / s)
+        print(f"scan sf10 [{kind}]: {rows} rows in {s * 1e3:.1f} ms, {rows / s:.4g} rows/s "
+              f"end to end", flush=True)
+    deep_rows, deep_s = timed(prefetched, workers, workers)
+    with_scan_chunks = ss_run_chunks(scan_chunks(path, columns=SS_COLUMNS), oracles, "scan_chunks")
+    # the copy of one row group's host arrays: pageable (phase 12's
+    # path) against the scan's page-locked staging, in turns
+    with ParquetReader(path) as r:
+        specs = r.read_row_group_host(0)
+    spec_bytes = sum(a.nbytes for sp in specs for a in (sp["data"], sp["validity"], sp["offsets"])
+                     if a is not None)
+    copy_ms = {"pageable": [], "pinned": []}
+    for kind in ("pageable", "pinned", "pinned", "pageable"):
+        _n, s = timed(lambda: table_from_numpy(specs, "cuda", pinned=kind == "pinned").num_rows)  # noqa: B023
+        copy_ms[kind].append(s * 1e3)
+    if not (rows == deep_rows == with_scan_chunks == SS_ROWS):
+        raise AssertionError("scan row counts differ")
+    print(f"scan sf10: all {len(oracles)} row groups and the folded totals exact under the "
+          f"synchronous loop, prefetch_chunks and scan_chunks; kernel launches on the scan "
+          f"path {json.dumps(launches)}")
+    print(f"scan sf10 rows/s end to end: prefetched (depth 2, {workers} workers) "
+          f"{json.dumps(rates['prefetched'])}, synchronous {json.dumps(rates['sync'])}; "
+          f"prefetched at depth {workers}: {deep_rows / deep_s:.4g}")
+    print(f"scan sf10 metrics (first prefetched run): scan.stall_ms {json.dumps(stall)}, "
+          f"scan.prefetch_depth {depth_gauge}, scan.bytes_read {bytes_read}; decode workers "
+          f"{workers}, os.sched_getaffinity {len(os.sched_getaffinity(0))} cores")
+    print(f"scan sf10 copy of one row group ({spec_bytes} bytes, host clock, synced, in turns): "
+          f"{json.dumps(copy_ms)} ms; page-locked staging includes its host memcpy")
+    print(f"scan sf10 peak device memory: {peak} bytes; card: {card}", flush=True)
+    return launches
+
+
+REGEX_PATTERNS = {  # benchmarks/regex_scan.py:79-84, the DFA-size axis
+    "tiny": r"[ab]+c",
+    "small": r"id=\d+;host=[\w.]+",
+    "medium": r"(foo|bar|baz)\d{2,8}end",
+    "large": r"a{24}[bc]{24}",
+}
+REGEX_EXTRACT = (r"id=(\d+);host=([\w.]+)", 2)
+REGEX_ROWS = {"narrow": 1 << 20, "wide": 1 << 18, "extract": 1 << 18}
+# pattern -> (pattern_fingerprint, extraction_fingerprint) as the JAX
+# package computes them (tests/test_torch_regex.py holds these constants
+# to the JAX package)
+REGEX_FINGERPRINTS = {
+    r"[ab]+c": ("3d4c1914daac9d32:00", "b155c18cabc9701d"),
+    r"id=\d+;host=[\w.]+": ("045095851b951f89:00", "ee008b9e1ac57714"),
+    r"(foo|bar|baz)\d{2,8}end": ("c71a37405f8691cf:00", "93e1f8a6c3ca5864"),
+    r"a{24}[bc]{24}": ("80389456e7483ed9:00", "36132d7ef246f541"),
+    r"id=(\d+);host=([\w.]+)": ("045095851b951f89:00", "7c57e94b00127099"),
+    r"^(\w+?)(\d*)$": ("37eb4ebe30e3989f:11", "f62a36095e3cc5f9"),
+    r"x{30}y{30}z{10}": ("f49187b700396adb:00", "eeb5a2090d5220c2"),
+}
+
+
+def _left_digits(v, width):
+    """uint8 [n, width] decimal digits of ``v`` left-aligned, and their
+    counts."""
+    table, ndig = _digit_table(int(v.max()) + 1, width)
+    mat, lens = table[v], ndig[v]
+    shift = (width - lens)[:, None] + np.arange(width)[None, :]
+    return np.take_along_axis(mat, np.minimum(shift, width - 1), 1), lens
+
+
+def _const_piece(text, n):
+    b = np.frombuffer(text.encode(), np.uint8)
+    return np.broadcast_to(b, (n, len(b))), np.full(n, len(b), np.int64)
+
+
+def ragged_concat(pieces, n):
+    """Interop STRING spec of rows made of pieces ``(uint8 [n, w]
+    left-aligned bytes, lengths [n])`` laid end to end."""
+    width = sum(m.shape[1] for m, _ in pieces)
+    out = np.zeros((n, width), np.uint8)
+    cur = np.zeros(n, np.int64)
+    rows = np.arange(n)[:, None]
+    for mat, lens in pieces:
+        w = mat.shape[1]
+        live = np.arange(w)[None, :] < lens[:, None]
+        pos = np.minimum(cur[:, None] + np.arange(w)[None, :], width - 1)
+        out[np.broadcast_to(rows, live.shape)[live], pos[live]] = mat[live]
+        cur += lens
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum(cur, out=offsets[1:])
+    data = out[np.arange(width)[None, :] < cur[:, None]]
+    return {"dtype": ("string", 0, None, None), "data": data, "offsets": offsets,
+            "validity": None}
+
+
+def regex_subjects(n, kind):
+    """benchmarks/regex_scan.py's ``_subjects(n, kind)`` (:60-74) built by
+    numpy: "id={i};host=h{i % 97}.example.com" when i % 3, else
+    "bad {i}"; the wide kind appends 90 x's."""
+    i = np.arange(n)
+    good = (i % 3) != 0
+    head_id, _ = _const_piece("id=", n)
+    head_bad, _ = _const_piece("bad ", n)
+    head = np.where(good[:, None], np.pad(head_id, ((0, 0), (0, 1))), head_bad)
+    host, host_len = _const_piece(";host=h", n)
+    dom, dom_len = _const_piece(".example.com", n)
+    hd, hl = _left_digits(i % 97, 2)
+    pieces = [
+        (head, np.where(good, 3, 4)),
+        _left_digits(i, len(str(n - 1))),
+        (host, np.where(good, host_len, 0)),
+        (hd, np.where(good, hl, 0)),
+        (dom, np.where(good, dom_len, 0)),
+    ]
+    if kind == "wide":
+        pieces.append(_const_piece("x" * 90, n))
+    return ragged_concat(pieces, n)
+
+
+def regex_subjects_python(n, kind):
+    """The benchmark's own list comprehension (the oracle's input)."""
+    pad = "x" * 90 if kind == "wide" else ""
+    return [(f"id={i};host=h{i % 97}.example.com" if i % 3 else f"bad {i}") + pad
+            for i in range(n)]
+
+
+REGEX_MIXED_PIECES = ["a", "b", "c", "ab", "abc", "id=", "12", "7", ";", "host=", "h.x",
+                      "foo", "bar", "end", "<", ">", " ", "\n", "\r\n", "\r", "é", "xyz", "x"]
+REGEX_MIXED_CASES = [  # (op, pattern, group) for the card-vs-CPU pass
+    ("rlike", r"[ab]+c", None), ("rlike", r"^ab", None), ("rlike", r"c$", None),
+    ("rlike", r"^(ab|c)+$", None), ("rlike", r"id=\d+;", None), ("rlike", r"x*$", None),
+    ("extract", r"id=(\d+);host=([\w.]+)", 2), ("extract", r"<(.+?)>", 1),
+    ("extract", r"^(\w+?)(\d*)$", 1), ("extract", r"(a+?)(b*)c$", 2),
+    ("extract", r"(\d+)", 0), ("extract", r"(foo|bar)(\d*)end", 1),
+]
+REGEX_LONG_PATTERN = r"x{30}y{30}z{10}"  # 70 Glushkov positions: the serial DFA walk
+
+
+def regex_mixed_spec(n, seed, long_rows=False):
+    """Mixed subjects: 1-6 random pieces (terminators \\n, \\r\\n, \\r
+    among them), empties and nulls; ``long_rows`` adds rows around the
+    70-position pattern."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        k = rng.integers(0, 7)
+        s = "".join(REGEX_MIXED_PIECES[j] for j in rng.integers(0, len(REGEX_MIXED_PIECES), k))
+        if long_rows and rng.random() < 0.3:
+            s = "x" * int(rng.integers(28, 32)) + "y" * int(rng.integers(29, 31)) + "z" * 10 + s
+        rows.append(s)
+    valid = rng.random(n) > 0.1
+    enc = [s.encode() for s in rows]
+    lens = np.array([len(b) if v else 0 for b, v in zip(enc, valid)], np.int64)
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    data = np.frombuffer(b"".join(b for b, v in zip(enc, valid) if v), np.uint8).copy()
+    return {"dtype": ("string", 0, None, None), "data": data, "offsets": offsets,
+            "validity": valid}
+
+
+def regex_mixed_results(short, long_col):
+    """Every case of the card-vs-CPU pass over one device's columns,
+    under each strategy (and extraction unbatched): host lists."""
+    from spark_rapids_jni_tpu_torch.api import Regex
+    from spark_rapids_jni_tpu_torch.ops import regex
+    from spark_rapids_jni_tpu_torch.ops._strategy import set_scan_batching, set_scan_strategy
+
+    out = {}
+    try:
+        for strat, batch in (("serial", True), ("monoid", True), ("monoid", False), ("auto", True)):
+            set_scan_strategy(strat)
+            set_scan_batching(batch)
+            for op, pat, g in REGEX_MIXED_CASES:
+                res = Regex.rlike(short, pat) if op == "rlike" else regex.regexp_extract(short, pat, g)
+                out[(strat, batch, op, pat, g)] = res.to_pylist()
+            out[(strat, batch, "rlike", REGEX_LONG_PATTERN, None)] = Regex.rlike(
+                long_col, REGEX_LONG_PATTERN).to_pylist()
+    finally:
+        set_scan_strategy(None)
+        set_scan_batching(None)
+    return out
+
+
+def regex_phase(counters, card):
+    """Phase 18: Regex at benchmarks/regex_scan.py's axes. rlike over 1 Mi
+    narrow rows (L = 32) for each of its four patterns, over 256 Ki wide
+    rows (L = 128) with the small pattern, and regexp_extract(group 2)
+    over 256 Ki narrow rows, each under serial and monoid (extraction
+    also unbatched); every row exact against Python re, ms, rows/s and
+    torch ops per case, the regex.strategy counters; then card against
+    CPU over a mixed 64 Ki batch and the fingerprints against the JAX
+    package's strings."""
+    import re
+
+    from spark_rapids_jni_tpu_torch import Column
+    from spark_rapids_jni_tpu_torch.api import Regex
+    from spark_rapids_jni_tpu_torch.columnar.interop import column_from_numpy
+    from spark_rapids_jni_tpu_torch.ops import regex
+    from spark_rapids_jni_tpu_torch.ops._strategy import set_scan_batching, set_scan_strategy
+    from spark_rapids_jni_tpu_torch.runtime import metrics
+
+    metrics.reset()
+    for name in counters:
+        counters[name].launches = 0
+    cases = []
+    subjects = {}
+    for kind, n in (("narrow", REGEX_ROWS["narrow"]), ("wide", REGEX_ROWS["wide"])):
+        py = regex_subjects_python(n, kind)
+        spec = regex_subjects(n, kind)
+        if spec["data"].tobytes() != "".join(py).encode():
+            raise AssertionError(f"numpy {kind} subjects differ from regex_scan._subjects")
+        subjects[kind] = (py, column_from_numpy(spec, "cuda"))
+    for key, pat in REGEX_PATTERNS.items():
+        cases.append((f"rlike {key} narrow", "narrow", REGEX_ROWS["narrow"], pat, None))
+    cases.append(("rlike small wide", "wide", REGEX_ROWS["wide"], REGEX_PATTERNS["small"], None))
+    cases.append(("regexp_extract narrow", "narrow", REGEX_ROWS["extract"], *REGEX_EXTRACT))
+    report = {}
+    try:
+        for label, kind, n, pat, group in cases:
+            py, full = subjects[kind]
+            col = full if n == len(py) else Column(full.dtype, full.data, None,
+                                                   full.offsets[: n + 1])
+            if group is None:
+                want = [bool(re.search(pat, s)) for s in py[:n]]
+                fn = lambda: Regex.rlike(col, pat)  # noqa: E731
+                check = lambda res: [bool(x) for x in res.to_pylist()] == want  # noqa: E731
+                arms = (("serial", True), ("monoid", True))
+            else:
+                want = [m.group(group) if (m := re.search(pat, s)) else "" for s in py[:n]]
+                fn = lambda: regex.regexp_extract(col, pat, group)  # noqa: E731
+                check = lambda res: res.to_pylist() == want  # noqa: E731
+                arms = (("serial", True), ("monoid", True), ("monoid", False))
+            for strat, batch in arms:
+                set_scan_strategy(strat)
+                set_scan_batching(batch)
+                if not check(fn()):
+                    raise AssertionError(f"regex {label} [{strat}] differs from Python re")
+                ms = host_ms(fn, 3)
+                ops = op_counts(lambda tick: (fn(), tick("ops")))["ops"]
+                arm = strat if batch else f"{strat} unbatched"
+                report[f"{label} [{arm}]"] = {"ms": round(ms, 3), "rows_per_s": float(f"{n / (ms / 1e3):.4g}"),
+                                              "ops": ops}
+                print(f"regex [{label}, {arm}]: {n} rows exact against Python re; {ms:.3f} ms, "
+                      f"{n / (ms / 1e3):.4g} rows/s, {ops} torch ops", flush=True)
+    finally:
+        set_scan_strategy(None)
+        set_scan_batching(None)
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    snap = metrics.snapshot()
+    strat_counts = {k: v for k, v in snap["counters"].items() if k.startswith("regex.strategy.")}
+    print(f"regex counters: {json.dumps(strat_counts)}, regex.monoid_states "
+          f"{snap['gauges'].get('regex.monoid_states')}; kernel launches on the regex path "
+          f"{json.dumps(launches)}; card: {card}")
+
+    # card against CPU over a mixed batch, every strategy
+    short_spec = regex_mixed_spec(N_MIXED, seed=18)
+    long_spec = regex_mixed_spec(N_MIXED // 8, seed=19, long_rows=True)
+    got = regex_mixed_results(column_from_numpy(short_spec, "cuda"), column_from_numpy(long_spec, "cuda"))
+    want = regex_mixed_results(column_from_numpy(short_spec, "cpu"), column_from_numpy(long_spec, "cpu"))
+    for key in want:
+        if got[key] != want[key]:
+            raise AssertionError(f"regex card != cpu: {key}")
+    ref = {k: v for k, v in want.items() if k[0] == "serial"}
+    for key, val in want.items():
+        if val != ref[("serial", True) + key[2:]]:
+            raise AssertionError(f"regex strategies disagree: {key}")
+    for pat, (pfp, efp) in REGEX_FINGERPRINTS.items():
+        if (regex.pattern_fingerprint(pat), regex.extraction_fingerprint(pat)) != (pfp, efp):
+            raise AssertionError(f"regex fingerprints of {pat!r} differ from the JAX package's")
+    print(f"regex card vs cpu: {len(want)} results over {N_MIXED} + {N_MIXED // 8} mixed rows "
+          f"equal, strategies agree; {len(REGEX_FINGERPRINTS)} fingerprints equal the JAX "
+          f"package's", flush=True)
+    return launches
+
+
+ZORDER_RANGES = 1000  # spark.databricks.io.skipping.mdc.rangeId.max's default
+ZORDER_KEYS = (0, 1, 2)  # l_orderkey, l_partkey, l_suppkey of lineitem_spec
+ZORDER_HILBERT_BITS = 10
+
+
+def range_ids(keys, ranges=ZORDER_RANGES):
+    """int32 range partition ids in [0, ranges) of an int64 key column:
+    rank of the key among ``ranges - 1`` quantile bounds (OPTIMIZE ZORDER
+    BY's range partitioning)."""
+    bounds = np.quantile(keys, np.arange(1, ranges) / ranges, method="lower")
+    return np.searchsorted(bounds, keys, side="left").astype(np.int32)
+
+
+def interleave_numpy(cols, valid=None):
+    """Independent Z-order oracle: big-endian bit planes of each column
+    (nulls read as 0), interleaved column-major per bit, packed MSB
+    first; uint8 [n, ncols * itemsize]."""
+    n = len(cols[0])
+    planes = []
+    for i, c in enumerate(cols):
+        c = c.copy()
+        if valid is not None and valid[i] is not None:
+            c[~valid[i]] = 0
+        be = c.astype(c.dtype.newbyteorder(">")).view(np.uint8).reshape(n, -1)
+        planes.append(np.unpackbits(be, axis=1))
+    stream = np.stack(planes, axis=2).reshape(n, -1)
+    return np.packbits(stream, axis=1)
+
+
+def hilbert_numpy(cols, num_bits, valid=None):
+    """Independent Hilbert oracle in numpy uint64 (zorder.cu's Skilling
+    transform, hilbert_transposed_index:87-125)."""
+    one = np.uint64(1)
+    x = []
+    for i, c in enumerate(cols):
+        v = c.astype(np.int64).view(np.uint64) & np.uint64((1 << num_bits) - 1)
+        if valid is not None and valid[i] is not None:
+            v = np.where(valid[i], v, np.uint64(0))
+        x.append(v)
+    ncols = len(x)
+    m = one << np.uint64(num_bits - 1)
+    q = m
+    while q > one:
+        p = q - one
+        for i in range(ncols):
+            hit = (x[i] & q) != 0
+            t = (x[0] ^ x[i]) & p
+            x0 = np.where(hit, x[0] ^ p, x[0] ^ t)
+            if i:
+                x[i] = np.where(hit, x[i], x[i] ^ t)
+            x[0] = x0
+        q >>= one
+    for i in range(1, ncols):
+        x[i] = x[i] ^ x[i - 1]
+    t = np.zeros_like(x[0])
+    q = m
+    while q > one:
+        t = np.where((x[ncols - 1] & q) != 0, t ^ (q - one), t)
+        q >>= one
+    x = [v ^ t for v in x]
+    out = np.zeros_like(x[0])
+    k = num_bits * ncols - 1
+    for b in range(num_bits - 1, -1, -1):
+        for j in range(ncols):
+            out |= ((x[j] >> np.uint64(b)) & one) << np.uint64(k)
+            k -= 1
+    return out.view(np.int64)
+
+
+def zorder_phase(counters, card, n=N_MAIN):
+    """Phase 19: ZOrder on rung 1's lineitem batch: interleaveBits over
+    (l_orderkey, l_partkey, l_suppkey) as INT64, and interleaveBits and
+    hilbertIndex(10) over the same keys as INT32 range ids in [0, 1000)
+    (OPTIMIZE ZORDER BY's shape), each also with nulls; every output
+    exact against numpy oracles; ms, rows/s and the share of the byte
+    bound at 3.35 TB/s."""
+    from spark_rapids_jni_tpu_torch import INT32, INT64, Column
+    from spark_rapids_jni_tpu_torch.api import ZOrder
+
+    spec = lineitem_spec(n)
+    keys = [spec[i]["data"] for i in ZORDER_KEYS]
+    ids = [range_ids(k) for k in keys]
+    rng = np.random.default_rng(19)
+    masks = [rng.random(n) > 0.1 for _ in keys]
+    for name in counters:
+        counters[name].launches = 0
+    results = {}
+    for label, cols, dt in (("int64 keys", keys, INT64), ("int32 range ids", ids, INT32)):
+        for nulls in (False, True):
+            valid = masks if nulls else None
+            dev = [Column.from_numpy(c, dt, validity=None if valid is None else valid[i])
+                   for i, c in enumerate(cols)]
+            tag = f"{label}{', nulls' if nulls else ''}"
+            ops = [("interleaveBits", lambda: ZOrder.interleaveBits(n, *dev),  # noqa: B023
+                    interleave_numpy(cols, valid).reshape(-1))]
+            if dt is INT32:
+                ops.append(("hilbertIndex", lambda: ZOrder.hilbertIndex(  # noqa: B023
+                    ZORDER_HILBERT_BITS, n, *dev), hilbert_numpy(cols, ZORDER_HILBERT_BITS, valid)))
+            for op, fn, want in ops:
+                out = fn()
+                if not np.array_equal(out.data.cpu().numpy().reshape(-1), want.reshape(-1)):
+                    raise AssertionError(f"zorder {op} [{tag}] differs from the numpy oracle")
+                if op == "interleaveBits":
+                    stride = dt.size_bytes * len(cols)
+                    if not np.array_equal(out.offsets.cpu().numpy(), np.arange(n + 1) * stride):
+                        raise AssertionError(f"zorder {op} [{tag}] offsets")
+                ms = time_ms(fn, 10)
+                nbytes = sum(c.nbytes for c in cols) + (n * len(cols) if nulls else 0)
+                nbytes += out.data.numel() * out.data.element_size()
+                if out.offsets is not None:
+                    nbytes += 4 * out.offsets.numel()
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                results[f"{op} [{tag}]"] = {"ms": ms, "rows_per_s": n / (ms / 1e3),
+                                            "bound_ms": bound, "bound_share": bound / ms}
+                print(f"zorder {op} [{tag}]: {n} rows exact against numpy; {ms:.3f} ms "
+                      f"(CUDA events, mean of 10), {n / (ms / 1e3):.4g} rows/s, {nbytes} bytes, "
+                      f"bound {bound:.4f} ms, {bound / ms:.4f} of it", flush=True)
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    print(f"zorder: kernel launches on the zorder path {json.dumps(launches)}; card: {card}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     phase_t = [time.perf_counter()]
 
@@ -2539,7 +3035,8 @@ def main() -> int:
     try:
         ss_path = os.path.join(tmp, "store_sales.parquet")
         # ---- 12. store_sales at SF10 through Parquet, counted
-        launches["store_sales"] = store_sales_sf10(counters, card, ss_path)["murmur3_chain"]
+        ss_launches, ss_oracles = store_sales_sf10(counters, card, ss_path)
+        launches["store_sales"] = ss_launches["murmur3_chain"]
         phase_done("12 store_sales sf10")
 
         # ---- 13. float casts and from_json, card against CPU, exact
@@ -2558,13 +3055,25 @@ def main() -> int:
         launches["nested_parquet"] = nested_parquet(
             counters, card, os.path.join(tmp, "nested.parquet"))["murmur3_chain"]
         phase_done("16 nested parquet")
+
+        # ---- 17. rung 4 through the streamed scan, counted
+        launches["scan"] = scan_sf10(counters, card, ss_path, ss_oracles)["murmur3_chain"]
+        phase_done("17 scan sf10")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- 18. Regex at the regex_scan axes, counted; card against CPU
+    launches["regex"] = regex_phase(counters, card)["murmur3_chain"]
+    phase_done("18 regex")
+
+    # ---- 19. ZOrder on rung 1's lineitem batch, counted
+    launches["zorder"] = zorder_phase(counters, card)["murmur3_chain"]
+    phase_done("19 zorder")
     for path, count in launches.items():
         if (count >= 1) != (path == "rung 1"):
             raise AssertionError(f"murmur3 launches on the {path} path: {count}")
 
-    # ---- 17. kernel numbers, card, verdict
+    # ---- 20. kernel numbers, card, verdict
     k = timings["keys"]
     print(json.dumps({"kernels": [{
         "name": "murmur3_chain",

@@ -20,6 +20,16 @@ Layer map of the ported slices:
     read_table                    Parquet ingress over native/parquet_*.cpp
                                     (ops/parquet_footer, ops/parquet_reader,
                                     runtime/native)
+  api.ScanPlan, prefetch_chunks,  footer-pruned, prefetched Parquet scan
+    scan_chunks                     (runtime/scan: decode threads, pinned
+                                    copies on a side stream)
+  api.MapUtils                    from_json (ops/map_utils)
+  api.Regex                       rlike, regexp_extract (ops/regex,
+                                    regex/compile)
+  api.ZOrder                      Z-order interleave, Hilbert index
+                                    (ops/zorder)
+  runtime/metrics, events, spans  telemetry: counters/gauges/timers, the
+                                    event journal, causal spans
   ops/row_conversion_host         host JCUDF codec over native/jcudf_rows.cpp
   parallel/spark_hash             Spark HashPartitioning placement
   kernels/murmur3 + csrc/         the hand-written Hopper Murmur3 kernel
@@ -56,9 +66,14 @@ from .api import (
     JSONUtils,
     ParquetFooter,
     ParquetReader,
+    Regex,
     RowConversion,
+    ScanPlan,
     SortOrder,
+    ZOrder,
+    prefetch_chunks,
     read_table,
+    scan_chunks,
 )
 
 __version__ = "0.1.0"
@@ -91,7 +106,12 @@ __all__ = [
     "JSONUtils",
     "ParquetFooter",
     "ParquetReader",
+    "Regex",
     "RowConversion",
+    "ScanPlan",
     "SortOrder",
+    "ZOrder",
+    "prefetch_chunks",
     "read_table",
+    "scan_chunks",
 ]

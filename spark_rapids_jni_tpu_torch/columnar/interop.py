@@ -30,35 +30,46 @@ from .nested import ListColumn, StructColumn
 from .table import Table
 
 
-def _to_device(arr, np_dtype, dev) -> torch.Tensor:
-    return torch.from_numpy(np.array(arr, np_dtype, copy=True)).to(dev)
+def _to_device(arr, np_dtype, dev, pinned=False) -> torch.Tensor:
+    if not pinned:
+        return torch.from_numpy(np.array(arr, np_dtype, copy=True)).to(dev)
+    src = np.asarray(arr, np_dtype)
+    host = torch.empty(src.shape, dtype=torch.from_numpy(src[:0]).dtype, pin_memory=True)
+    host.numpy()[...] = src
+    return host.to(dev, non_blocking=True)
 
 
-def column_from_numpy(spec: Dict, device="cuda"):
+def column_from_numpy(spec: Dict, device="cuda", pinned=False):
+    """Column on ``device`` from one numpy dict. ``pinned`` stages each
+    array through page-locked host memory and copies it without
+    blocking, on the current stream (the caller orders its use)."""
     dev = resolve_device(device)
     validity = spec.get("validity")
-    v = None if validity is None else _to_device(validity, np.bool_, dev)
+    v = None if validity is None else _to_device(validity, np.bool_, dev, pinned)
     if "list" in spec:
         return ListColumn(
-            _to_device(spec["offsets"], np.int32, dev), column_from_numpy(spec["list"], dev), v
+            _to_device(spec["offsets"], np.int32, dev, pinned),
+            column_from_numpy(spec["list"], dev, pinned),
+            v,
         )
     if "struct" in spec:
-        kids = tuple(column_from_numpy(c, dev) for c in spec["struct"])
+        kids = tuple(column_from_numpy(c, dev, pinned) for c in spec["struct"])
         return StructColumn(kids, v, tuple(spec["names"]))
     dtype = DType(*spec["dtype"])
     if dtype.kind in ("string", "binary"):
         return Column(
             dtype,
-            _to_device(spec["data"], np.uint8, dev),
+            _to_device(spec["data"], np.uint8, dev, pinned),
             v,
-            _to_device(spec["offsets"], np.int32, dev),
+            _to_device(spec["offsets"], np.int32, dev, pinned),
         )
-    return Column(dtype, _to_device(spec["data"], dtype.np_dtype, dev), v)
+    return Column(dtype, _to_device(spec["data"], dtype.np_dtype, dev, pinned), v)
 
 
-def table_from_numpy(columns: Sequence[Dict], device="cuda") -> Table:
-    """Table on ``device`` from per-column numpy dicts (see module doc)."""
-    return Table([column_from_numpy(spec, device) for spec in columns])
+def table_from_numpy(columns: Sequence[Dict], device="cuda", pinned=False) -> Table:
+    """Table on ``device`` from per-column numpy dicts (see module doc);
+    ``pinned`` as in ``column_from_numpy``."""
+    return Table([column_from_numpy(spec, device, pinned) for spec in columns])
 
 
 def _host(t):

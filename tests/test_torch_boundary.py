@@ -246,3 +246,79 @@ def test_string_layer_entry_default_device_is_cuda(name):
     out = entry(port.Column.from_pylist(rows, port.STRING, device="cpu"))
     assert out.device.type == "cpu"
     assert out.to_pylist()[1] is None
+
+
+# The modules of the slice that adds the telemetry base, Regex, ZOrder
+# and the prefetched scan, imported the same way.
+SCAN_REGEX_ZORDER_MODULES = [
+    ("spark_rapids_jni_tpu_torch.runtime.metrics", "counter"),
+    ("spark_rapids_jni_tpu_torch.runtime.events", "EVENT_NAMES"),
+    ("spark_rapids_jni_tpu_torch.runtime.spans", "span"),
+    ("spark_rapids_jni_tpu_torch.runtime.scan", "prefetch_chunks"),
+    ("spark_rapids_jni_tpu_torch.columnar.interop", "table_from_numpy"),
+    ("spark_rapids_jni_tpu_torch.ops.regex", "regexp_extract"),
+    ("spark_rapids_jni_tpu_torch.ops.zorder", "hilbert_index"),
+    ("spark_rapids_jni_tpu_torch.api", "Regex"),
+    ("spark_rapids_jni_tpu_torch.api", "ZOrder"),
+    ("spark_rapids_jni_tpu_torch.api", "scan_chunks"),
+    ("spark_rapids_jni_tpu_torch.api", "ScanPlan"),
+]
+
+
+@pytest.mark.parametrize("module,attr", SCAN_REGEX_ZORDER_MODULES)
+def test_scan_regex_zorder_module_imports_without_jax(module, attr):
+    test_q5_slice_module_imports_without_jax(module, attr)
+
+
+SCAN_REGEX_ZORDER_ENTRIES = {
+    "rlike": lambda dev: port.Regex.rlike(port.Column.from_pylist(["ab", None], port.STRING, **dev),
+                                          "a+"),
+    "regexpExtract": lambda dev: port.Regex.regexpExtract(
+        port.Column.from_pylist(["id=7", None], port.STRING, **dev), r"id=(\d+)"),
+    "interleaveBits": lambda dev: port.ZOrder.interleaveBits(
+        2, port.Column.from_pylist([1, 2], port.INT32, **dev)),
+    "interleaveBits no columns": lambda dev: port.ZOrder.interleaveBits(2, **dev),
+    "hilbertIndex": lambda dev: port.ZOrder.hilbertIndex(
+        4, 2, port.Column.from_pylist([1, None], port.INT32, **dev)),
+    "hilbertIndex no columns": lambda dev: port.ZOrder.hilbertIndex(4, 2, **dev),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCAN_REGEX_ZORDER_ENTRIES))
+def test_regex_zorder_entry_default_device_is_cuda(name):
+    """Regex and ZOrder run where their columns lie; with no column the
+    ZOrder corner cases make their result on ``device``, the card by
+    default. Without a card the default raises instead of computing on
+    the CPU."""
+    entry = SCAN_REGEX_ZORDER_ENTRIES[name]
+    if torch.cuda.is_available():
+        assert entry({}).data.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry({})
+    out = entry({"device": "cpu"})
+    assert out.data.device.type == "cpu" and len(out) == 2
+
+
+@pytest.mark.parametrize("entry", ["ScanPlan", "scan_chunks"])
+def test_scan_default_device_is_cuda(tmp_path, entry):
+    """ScanPlan and scan_chunks hand ``device`` (default the card) to
+    their readers; without a card they raise before planning."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    path = str(tmp_path / "t.parquet")
+    chip_smoke.write_store_sales(path, 100, 64)
+    make = getattr(port, entry)
+    if torch.cuda.is_available():
+        with port.ScanPlan(path) as plan:
+            chunk = next(iter(port.prefetch_chunks(plan)))
+        assert chunk.columns[0].data.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(path)
+    if entry == "ScanPlan":
+        with make(path, device="cpu") as plan:
+            assert sum(c.num_rows for c in port.prefetch_chunks(plan)) == 100
+    else:
+        assert sum(c.num_rows for c in make(path, device="cpu")) == 100
