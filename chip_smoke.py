@@ -102,7 +102,30 @@ Phases, each fatal on failure:
      three INT64 keys, interleaveBits and hilbertIndex(10) over their
      INT32 range ids in [0, 1000), with and without nulls, exact against
      numpy oracles; ms, rows/s and the share of the byte bound
-  20. one JSON line of kernel numbers (with murmur3's launches on every
+  20. window and rollup, card against CPU: every WindowSpec kind under
+     both frames, ROLLUP and GROUPING SETS over the mixed 64 Ki-row batch,
+     exact; one window over rung 1's 4 Mi-row lineitem batch, timed
+  21. rung 5, q1 at SF10 through the fused Pipeline (benchmarks/
+     sf10_q1.py's chain: filter -> map(decimal products) -> group-by):
+     Pipeline.run and stream(window=2) (the chain replayed as a CUDA
+     graph), then two threads on streams of their own sharing the
+     Pipeline, every batch exact against the host oracle and the eager
+     run of the same chain in the same call; rows/s, torch ops per
+     chunk, the idle share, plan-cache misses and hits (one miss per
+     chain and shape), peak memory; the chain's eager sync-free form
+     and one chunk's dispatch under sync debug mode "error"
+  22. one q5 lineitem batch through the Pipeline (two joins, the
+     revenue product, group-by), exact against phase 9's result; two
+     Pipelines of one join chain over two same-shaped supplier tables
+     share one plan, each exact against its own eager chain
+  23. store_sales at SF10 through Pipeline.scan_parquet over phase 12's
+     file, in turns with phase 17's eager prefetched loop, exact against
+     the oracles
+  24. the retry runtime on the card: RmmSpark.forceRetryOOM mid-stream,
+     an undersized group-by capacity that re-plans, a retry_oom fault
+     from a faultinj rule file (results exact), and RetryOOMError past a
+     byte budget and past the retry bound
+  25. one JSON line of kernel numbers (with murmur3's launches on every
      path: 1 on rung 1, 0 on the others), the card line, then the verdict
 
 Exits non-zero, printing no verdict, without a card or without the port
@@ -119,6 +142,14 @@ import time
 
 import numpy as np
 import torch
+
+try:  # the names the Pipeline stage functions below read (an import in
+    # a stage function's body would hide its reads from the plan key)
+    from spark_rapids_jni_tpu_torch import Table as PortTable
+    from spark_rapids_jni_tpu_torch.api import DecimalUtils as PortDecimalUtils
+    from spark_rapids_jni_tpu_torch.columnar.strings import to_char_matrix
+except ImportError:  # chip_smoke.py without the port beside it: main() fails
+    PortTable = PortDecimalUtils = to_char_matrix = None
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -1112,7 +1143,9 @@ def q5_sf10(counters, card):
                   top=10)
     print(f"q5 sf10 peak device memory: {torch.cuda.max_memory_allocated()} bytes "
           f"(tables resident: {data_bytes}); card: {card}", flush=True)
-    return launches
+    ctx = {"build": built["build"], "supplier": t["supplier"], "lineitem0": li0,
+           "partial0": parts[0]["partial"], "want0": sorted(q5_oracle(d, 0, Q5_BATCH).items())}
+    return launches, ctx
 
 
 def host_codec(spec, rows, card):
@@ -2853,6 +2886,570 @@ def zorder_phase(counters, card, n=N_MAIN):
     return launches
 
 
+# ---- window and rollup, and rung 5: the chains through the fused
+# Pipeline (benchmarks/sf10_q1.py, sf10_store_sales.py) ----
+
+WINDOW_KINDS = ("row_number", "rank", "dense_rank", "sum", "count", "min", "max", "lead", "lag",
+                "first_value", "last_value")
+
+
+def window_rollup_ops(t):
+    """Every WindowSpec kind under both frames (over the INT64, FLOAT64
+    and DECIMAL64 columns of the mixed batch, count(*) too), a window
+    over a string partition key, ROLLUP and GROUPING SETS: name ->
+    result Table."""
+    from spark_rapids_jni_tpu_torch import Table
+    from spark_rapids_jni_tpu_torch.api import Aggregation, SortOrder
+    from spark_rapids_jni_tpu_torch.ops.rollup import grouping_sets, rollup
+    from spark_rapids_jni_tpu_torch.ops.window import WindowSpec, window
+
+    Key, Agg = SortOrder.SortKey, Aggregation.Agg
+    specs = [WindowSpec("count", None, "partition")]
+    for kind in WINDOW_KINDS:
+        cols = (None,) if kind in ("row_number", "rank", "dense_rank") else (3, 4, 5)
+        for frame in ("running", "partition"):
+            specs += [WindowSpec(kind, c, frame, 3 if kind in ("lead", "lag") else 1)
+                      for c in cols]
+    aggs = [Agg("sum", 3), Agg("count"), Agg("min", 4), Agg("max", 5), Agg("mean", 4)]
+    return {
+        "window": Table(window(t, [0], [Key(10), Key(2, False)], specs)),
+        "window string partition": Table(window(
+            t, [1], [Key(3)], [WindowSpec("rank"), WindowSpec("sum", 4, "partition")])),
+        "rollup": rollup(t, [0, 1], aggs),
+        "grouping_sets": grouping_sets(t, [0, 1, 10], [[0], [1, 10], []], aggs),
+    }
+
+
+def window_phase(counters, card, full):
+    """Phase 20: window and rollup on the card against the CPU over the
+    mixed 64 Ki-row batch, exact; then one window over rung 1's 4 Mi-row
+    lineitem batch (PARTITION BY l_suppkey ORDER BY l_orderkey:
+    row_number, rank, a running sum, lag, a partition max), timed."""
+    from spark_rapids_jni_tpu_torch.api import SortOrder
+    from spark_rapids_jni_tpu_torch.columnar.interop import table_from_numpy, table_to_numpy
+    from spark_rapids_jni_tpu_torch.ops.window import WindowSpec, window
+
+    spec = mixed_spec(N_MIXED)
+    t0 = time.perf_counter()
+    results = {dev: {k: table_to_numpy(v) for k, v in
+                     window_rollup_ops(table_from_numpy(spec, device=dev)).items()}
+               for dev in ("cuda", "cpu")}
+    for name, want in results["cpu"].items():
+        got = results["cuda"][name]
+        if len(got) != len(want):
+            raise AssertionError(f"window card vs cpu [{name}]: column count")
+        for i, (g, w) in enumerate(zip(got, want)):
+            for key in ("data", "validity", "offsets"):
+                if not same_array(g[key], w[key]):
+                    raise AssertionError(f"window card vs cpu [{name}]: column {i} {key} differs")
+    shapes = {k: [len(v), len(v[0]["data"])] for k, v in results["cpu"].items()}
+    print(f"window/rollup card vs cpu: exact at {N_MIXED} rows in "
+          f"{time.perf_counter() - t0:.1f} s; [columns, rows] {json.dumps(shapes)}", flush=True)
+
+    Key = SortOrder.SortKey
+    specs = [WindowSpec("row_number"), WindowSpec("rank"), WindowSpec("sum", 5),
+             WindowSpec("lag", 4), WindowSpec("max", 5, "partition")]
+
+    def run():
+        return window(full, [2], [Key(0)], specs)
+
+    run()
+    torch.cuda.synchronize()
+    for name in counters:
+        counters[name].launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    # spot check against numpy: rows of one supplier in l_orderkey order
+    supp = full.columns[2].data.cpu().numpy()
+    okey = full.columns[0].data.cpu().numpy()
+    price = full.columns[5].data.cpu().numpy()
+    rows = np.flatnonzero(supp == supp[0])
+    rows = rows[np.argsort(okey[rows], kind="stable")]
+    if (out[0].data.cpu().numpy()[rows] != np.arange(1, len(rows) + 1)).any() or \
+            (out[2].data.cpu().numpy()[rows] != np.cumsum(price[rows])).any():
+        raise AssertionError("window over lineitem differs from numpy on one partition")
+    ms = host_ms(run)
+    print(f"window lineitem: {N_MAIN} rows, {len(specs)} specs in {ms:.3f} ms, "
+          f"{N_MAIN / (ms / 1e3):.4g} rows/s; torch ops "
+          f"{json.dumps(op_counts(lambda tick: (run(), tick('window'))))}; kernel launches "
+          f"{json.dumps(launches)}", flush=True)
+    profile_stage("window lineitem (4 Mi rows)", run)
+    return launches
+
+
+def q1_ship_filter(t):
+    """q1's WHERE l_shipdate <= date '1998-09-02'."""
+    return t.columns[6].data <= Q1_CUTOFF
+
+
+def q1_prep(t):
+    """q1's map stage (benchmarks/sf10_q1.py:64-75): the decimal products
+    at their true static precisions; drops the ship column."""
+    qty, price, disc, tax = t.columns[2:6]
+    dp = disc_price(price.data, disc.data).columns[1]  # (26,4)
+    ch = PortDecimalUtils.multiply128(dp, widen(100 + tax.data, 13), 6).columns[1]  # (38,6)
+    return PortTable([t.columns[0], t.columns[1], qty, price, dp, ch, disc])
+
+
+def q1_aggs():
+    from spark_rapids_jni_tpu_torch.api import Aggregation
+
+    Agg = Aggregation.Agg
+    return [Agg("sum", 2), Agg("sum", 3), Agg("sum", 4), Agg("sum", 5), Agg("sum", 6),
+            Agg("count", 2)]
+
+
+def q1_pipeline(name, capacity=8):
+    """benchmarks/sf10_q1.py's fused chain (:77-90): filter ->
+    map(q1_decimal_prep) -> group_by with the avgs folded on the host."""
+    from spark_rapids_jni_tpu_torch.api import Pipeline
+
+    return (Pipeline(name).filter(q1_ship_filter).map(q1_prep, name="q1_decimal_prep")
+            .group_by((0, 1), q1_aggs(), capacity=capacity, string_widths={0: 8, 1: 8}))
+
+
+def q1_chain_eager(t):
+    """The same chain through the eager façade: filter, the products,
+    group-by."""
+    from spark_rapids_jni_tpu_torch.api import Aggregation, Filter
+
+    return Aggregation.groupBy(q1_prep(Filter.apply(t, q1_ship_filter(t))), [0, 1], q1_aggs())
+
+
+def q1_chain_rows(groups):
+    """Expected rows of the q1 chain from q1_oracle's exact sums."""
+    return [[k[0], k[1]] + v for k, v in sorted(groups.items())]
+
+
+def plan_counts():
+    from spark_rapids_jni_tpu_torch.runtime import metrics
+
+    return (metrics.counter_value("pipeline.plan_cache_miss"),
+            metrics.counter_value("pipeline.plan_cache_hit"))
+
+
+def assert_sync_free(pipe, table, label):
+    """The pipeline's chain run eagerly in its sync-free form, then the
+    dispatch of one chunk (a replay of its cached graph), under CUDA's
+    sync debug mode "error": any host sync on either path raises."""
+    from spark_rapids_jni_tpu_torch.ops._strategy import fusing
+    from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
+
+    # the plan run() starts from, so the dispatch replays a cached graph
+    feedback = pl._feedback_for(pipe.signature_hash()) if pl.capacity_feedback() else None
+    plan = pipe._initial_plan(table.num_rows, feedback)
+    chain = pipe._chain_fn(plan)[0]
+    dispatch, sync, _holder = pipe._dispatch_fns(table, False)
+    misses = plan_counts()[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with fusing():
+            chain(table, tuple(pipe._sides))
+        value = dispatch(plan)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if any(sync(value).values()):
+        raise AssertionError(f"{label}: overflow in the sync-free check")
+    if plan_counts()[0] != misses:
+        raise AssertionError(f"{label}: the sync-free check built a plan")
+    print(f"{label}: the eager sync-free chain and one graph dispatch ran under sync debug "
+          f"mode 'error' with no host sync", flush=True)
+
+
+def concurrent_runs(pipe, tables, want, rows_of, label, n_threads=2, passes=2):
+    """``n_threads`` threads, each on a CUDA stream of its own, run every
+    table through one graph-form Pipeline ``passes`` times at once; every
+    result must equal ``want``. Returns the wall time."""
+    import threading
+
+    errors, streams = [], [torch.cuda.Stream() for _ in range(n_threads)]
+    torch.cuda.synchronize()
+
+    def work(k):
+        try:
+            with torch.cuda.stream(streams[k]):
+                outs = [pipe.run(t) for _ in range(passes) for t in tables]
+                got = [rows_of(o) for o in outs]
+            for i, g in enumerate(got):
+                if g != want[i % len(tables)]:
+                    errors.append(f"thread {k} run {i}")
+        except Exception as e:  # noqa: BLE001 -- re-raised below
+            errors.append(f"thread {k}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"{label}: concurrent runs differ: {errors[:4]}")
+    print(f"{label}: {n_threads} threads x {passes * len(tables)} runs, each on its own "
+          f"stream, all exact in {s * 1e3:.1f} ms", flush=True)
+    return s
+
+
+def q1_pipeline_phase(counters, card):
+    """Phase 21: q1 at SF10 (phase 7's batches, drawn again from the same
+    seed) through the same chain eagerly and through the Pipeline (its
+    CUDA graph form): ``run``, ``stream(window=2)`` and two threads
+    sharing the Pipeline, every batch exact against the host oracle and
+    the eager chain; rows/s, torch ops per chunk, the idle share, plan-
+    cache misses and hits, peak memory. Returns the launches and a few
+    batches for phase 24."""
+    from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
+
+    sizes = [Q1_BATCH] * (SF10_LINEITEM_ROWS // Q1_BATCH)
+    sizes.append(SF10_LINEITEM_ROWS - sum(sizes))
+    rng = np.random.default_rng(42)
+    host = [q1_batch_arrays(rng, n) for n in sizes]
+    tables = [q1_table(a, "cuda") for a in host]
+    want = [q1_chain_rows(q1_oracle(a)) for a in host]
+    rows = sum(sizes)
+    q1_chain_eager(tables[0])  # first launches of every op
+    torch.cuda.synchronize()
+    for name in counters:
+        counters[name].launches = 0
+
+    def check(outs, label):
+        for i, (out, w) in enumerate(zip(outs, want)):
+            got = q1_rows(out)
+            if got != w:
+                raise AssertionError(f"q1 {label} batch {i} differs from the host oracle: {got}")
+
+    def sweep(label, fn=None, each=None):
+        """One pass over the batches: ``fn()`` for all of them at once,
+        or ``each(t)`` per batch with a sync after each (then the
+        steady rate leaves out the batches that built a plan)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0, h0 = plan_counts()
+        t0 = time.perf_counter()
+        steady_rows, steady_s = 0, 0.0
+        if each is None:
+            outs = fn()
+        else:
+            outs = []
+            for t in tables:
+                m_before = plan_counts()[0]
+                tc = time.perf_counter()
+                outs.append(each(t))
+                torch.cuda.synchronize()
+                if plan_counts()[0] == m_before:
+                    steady_rows += t.num_rows
+                    steady_s += time.perf_counter() - tc
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        m1, h1 = plan_counts()
+        check(outs, label)
+        res = {"rows/s": rows / s, "ms": s * 1e3, "misses": m1 - m0, "hits": h1 - h0,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "reserved_bytes": torch.cuda.memory_reserved()}
+        if steady_s:
+            res["steady rows/s"] = steady_rows / steady_s
+        print(f"q1 pipeline [{label}]: {json.dumps(res)}", flush=True)
+        return res, outs
+
+    stats = {}
+    stats["eager chain"], eager_outs = sweep("eager chain", each=q1_chain_eager)
+    for i, (e, w) in enumerate(zip(eager_outs, want)):
+        if q1_rows(e) != w:
+            raise AssertionError(f"q1 eager chain batch {i} differs")
+    n_shapes = len(set(sizes))
+    pipe = q1_pipeline("q1_sf10")
+    stats["run"], _ = sweep("run", each=pipe.run)
+    stats["stream"], _ = sweep("stream(window=2)", lambda: pipe.stream(tables, window=2))
+    if stats["run"]["misses"] != n_shapes or stats["stream"]["misses"]:
+        raise AssertionError(f"q1 pipeline: plan-cache misses {stats['run']['misses']} + "
+                             f"{stats['stream']['misses']} for {n_shapes} shapes")
+    if stats["run"]["hits"] != len(tables) - n_shapes:
+        raise AssertionError(f"q1 pipeline: {stats['run']['hits']} hits")
+    m0, _ = plan_counts()
+    concurrent_runs(pipe, tables, want, q1_rows, "q1 pipeline")
+    if plan_counts()[0] != m0:
+        raise AssertionError("q1 pipeline: the concurrent runs built a plan")
+    stats["eager chain again"], _ = sweep("eager chain (again)", each=q1_chain_eager)
+    launches = {name: c.launches for name, c in counters.items()}
+    t0 = tables[0]
+    builds = {r["pipeline"]: r["build_wall_ms"] for r in pl.plan_cache_table()
+              if r["pipeline"] == "q1_sf10"}
+    print(f"q1 pipeline: {len(tables)} batches x 4 sweeps and 2 threads exact against the host "
+          f"oracle and the eager chain; plan builds ms {json.dumps(builds)}; kernel launches "
+          f"{json.dumps(launches)}")
+    ops = {
+        "eager chain": op_counts(lambda tick: (q1_chain_eager(t0), tick("chunk")))["chunk"],
+        "pipeline": op_counts(lambda tick: (pipe.run(t0), tick("chunk")))["chunk"],
+    }
+    print(f"q1 torch ops per chunk: {json.dumps(ops)}", flush=True)
+    assert_sync_free(pipe, t0, "q1 pipeline")
+    profile_stage("q1 eager chain (4 Mi rows)", lambda: q1_chain_eager(t0), top=4)
+    profile_stage("q1 pipeline (4 Mi rows)", lambda: pipe.run(t0), top=4)
+    print(f"q1 pipeline card: {card}", flush=True)
+    return launches, {"tables": tables[:4], "want": want[:4]}
+
+
+def q5_revenue(t):
+    """q5's map stage: l_extendedprice * (1 - l_discount) appended."""
+    return PortTable(list(t.columns)
+                     + [disc_price(t.columns[2].data, t.columns[3].data).columns[1]])
+
+
+def sides_check(li, build, supplier):
+    """Two Pipelines of one join chain over same-shaped supplier tables
+    with different nation keys: the second hits the first one's plan
+    (the build tables are inputs of the program, not part of it), and
+    each result is exact against its own eager chain. Run in turns, so
+    each replay follows one over the other table."""
+    from spark_rapids_jni_tpu_torch import Column
+    from spark_rapids_jni_tpu_torch.api import Aggregation, Pipeline
+
+    nk = supplier.columns[1]
+    other = PortTable([supplier.columns[0],
+                       Column(nk.dtype, (nk.data + 1) % len(Q5_NATIONS), nk.validity, None)])
+    aggs = [Aggregation.Agg("sum", 2), Aggregation.Agg("count", 0)]
+
+    def pipe(sup):
+        return (Pipeline("q5_sides")
+                .join(build, [0], [0], "inner", right_string_widths={2: 16})
+                .join(sup, [1, 5], [0, 1], "inner", left_string_widths={6: 16})
+                .group_by([6], aggs, capacity=32, string_widths={6: 16}))
+
+    def eager(sup):
+        return q5_rows(Aggregation.groupBy(q5_batch(li, build, sup)["join_supplier"], [6], aggs))
+
+    want = {"first": eager(supplier), "other": eager(other)}
+    pipes = {"first": pipe(supplier), "other": pipe(other)}
+    m0, h0 = plan_counts()
+    for label in ("first", "other", "first", "other"):
+        if q5_rows(pipes[label].run(li)) != want[label]:
+            raise AssertionError(f"q5 sides: the Pipeline over the {label} supplier table "
+                                 f"differs from its eager chain")
+    m1, h1 = plan_counts()
+    if (m1 - m0, h1 - h0) != (1, 3) or want["first"] == want["other"]:
+        raise AssertionError(f"q5 sides: misses {m1 - m0}, hits {h1 - h0} over 4 runs, "
+                             f"or the two tables give one result")
+    print(f"q5 sides: two Pipelines of one join chain over two same-shaped supplier tables "
+          f"share one plan (1 miss, 3 hits), each exact against its eager chain", flush=True)
+
+
+def q5_pipeline_phase(counters, card, ctx):
+    """Phase 22: one q5 lineitem batch (phase 9's first) through the
+    Pipeline: join the build on l_orderkey, join supplier on (l_suppkey,
+    c_nationkey), the revenue product, group-by n_name; against phase
+    9's result for the batch and the host oracle, exact. Then
+    ``sides_check``: one join chain over two same-shaped supplier
+    tables."""
+    from spark_rapids_jni_tpu_torch.api import Aggregation, Pipeline
+
+    build, supplier = ctx["build"], ctx["supplier"]
+    li = ctx["lineitem0"]
+
+    pipe = (Pipeline("q5_batch")
+            .join(build, [0], [0], "inner", right_string_widths={2: 16})
+            .join(supplier, [1, 5], [0, 1], "inner", left_string_widths={6: 16})
+            .map(q5_revenue, name="q5_revenue")
+            .group_by([6], [Aggregation.Agg("sum", 9)], capacity=32, string_widths={6: 16}))
+    pipe.run(li)
+    torch.cuda.synchronize()
+    sides_check(li, build, supplier)
+    for name in counters:
+        counters[name].launches = 0
+    m0, h0 = plan_counts()
+    out = pipe.run(li)
+    torch.cuda.synchronize()
+    m1, h1 = plan_counts()
+    launches = {name: c.launches for name, c in counters.items()}
+    got = q5_rows(out)
+    if got != q5_rows(ctx["partial0"]) or got != ctx["want0"]:
+        raise AssertionError(f"q5 pipeline batch 0 differs from phase 9's result: {got}")
+    ms = {"pipeline": host_ms(lambda: pipe.run(li)),
+          "eager": host_ms(lambda: q5_batch(li, build, supplier))}
+    ops = {"pipeline": op_counts(lambda tick: (pipe.run(li), tick("b")))["b"],
+           "eager": op_counts(lambda tick: (q5_batch(li, build, supplier), tick("b")))["b"]}
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    peaks = {"pipeline": peak(lambda: pipe.run(li)),
+             "eager": peak(lambda: q5_batch(li, build, supplier))}
+    print(f"q5 pipeline: batch 0 ({li.num_rows} rows) exact against phase 9 and the host "
+          f"oracle; plan-cache misses {m1 - m0}, hits {h1 - h0}; "
+          f"ms {json.dumps(ms)}, rows/s pipeline {li.num_rows / (ms['pipeline'] / 1e3):.4g}, "
+          f"eager {li.num_rows / (ms['eager'] / 1e3):.4g}; torch ops {json.dumps(ops)}; "
+          f"peak bytes {json.dumps(peaks)}; kernel launches {json.dumps(launches)}", flush=True)
+    profile_stage("q5 pipeline batch (4 Mi rows)", lambda: pipe.run(li), top=4)
+    return launches
+
+
+def ss_is_web(t):
+    """channel == "web" over the width-pinned char matrix, AND a valid
+    price (the eager chain's filter, with no host sync)."""
+    chars, lengths = to_char_matrix(t.columns[3], SS_WIDTHS[2])
+    hit = (lengths == 3) & (chars[:, 0] == 119) & (chars[:, 1] == 101) & (chars[:, 2] == 98)
+    return hit & t.columns[2].validity_or_true()
+
+
+def ss_pipeline(name):
+    """benchmarks/sf10_store_sales.py's fused chain (:157-165)."""
+    from spark_rapids_jni_tpu_torch import INT32
+    from spark_rapids_jni_tpu_torch.api import Aggregation, Pipeline
+
+    Agg = Aggregation.Agg
+    return (Pipeline(name)
+            .cast_to_integer(1, INT32, strip=True, width=SS_WIDTHS[0])
+            .cast_to_decimal(2, 9, 2, width=SS_WIDTHS[1])
+            .get_json_object(3, "$.channel", width=SS_WIDTHS[2])
+            .filter(ss_is_web)
+            .group_by([0], (Agg("sum", 2), Agg("count", 2)), capacity=SS_STORES + 1))
+
+
+def ss_pipeline_phase(counters, card, path, oracles):
+    """Phase 23: store_sales at SF10 through Pipeline.scan_parquet over
+    phase 12's file (footers planned once, row groups prefetched, the
+    chain over each through stream's window), in turns with phase 17's
+    eager prefetched loop; every row group and the totals exact against
+    the oracles; rows/s, ops per chunk, the idle share, plan-cache
+    misses and hits, peak memory."""
+    from spark_rapids_jni_tpu_torch.api import ParquetReader, ScanPlan, prefetch_chunks
+    from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
+
+    want = {}
+    for o in oracles:
+        ss_fold(want, o)
+
+    def eager():
+        with ScanPlan(path, columns=SS_COLUMNS) as plan:
+            gen = prefetch_chunks(plan)
+            try:
+                return ss_run_chunks(gen, oracles, "eager prefetched")
+            finally:
+                gen.close()
+
+    pipe = ss_pipeline("ss_sf10")
+
+    def fused():
+        outs = pipe.scan_parquet(path, columns=SS_COLUMNS, window=2)
+        total = {}
+        for rg, res in enumerate(outs):
+            part = ss_result(res)
+            if part != oracles[rg]:
+                raise AssertionError(f"store_sales pipeline row group {rg} differs")
+            ss_fold(total, part)
+        if len(outs) != len(oracles) or total != want:
+            raise AssertionError("store_sales pipeline totals differ from the oracle")
+        return SS_ROWS
+
+    for name in counters:
+        counters[name].launches = 0
+    rates = {"eager": [], "pipeline": []}
+    stats = {}
+    for kind in ("pipeline", "eager", "eager", "pipeline"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0, h0 = plan_counts()
+        t0 = time.perf_counter()
+        n = fused() if kind == "pipeline" else eager()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        m1, h1 = plan_counts()
+        rates[kind].append(n / s)
+        stats.setdefault(kind, []).append({"misses": m1 - m0, "hits": h1 - h0,
+                                           "peak_bytes": torch.cuda.max_memory_allocated()})
+    launches = {name: c.launches for name, c in counters.items()}
+    rows = [r for r in pl.plan_cache_table() if r["pipeline"] == "ss_sf10"]
+    first = stats["pipeline"][0]
+    if first["misses"] != len(rows) or first["hits"] != len(oracles) - len(rows) \
+            or stats["pipeline"][1]["misses"]:
+        raise AssertionError(f"store_sales pipeline plan cache: {json.dumps(stats)}, "
+                             f"{len(rows)} shapes")
+    with ParquetReader(path) as r:
+        t0 = r.read_row_group(0)
+    pipe.run(t0)  # this chunk's shape builds its plan outside the count
+    ops = {"eager chain": op_counts(lambda tick: (ss_chain(t0), tick("rg")))["rg"],
+           "pipeline": op_counts(lambda tick: (pipe.run(t0), tick("rg")))["rg"]}
+    print(f"store_sales pipeline: {len(oracles)} row groups x 2 scans exact against the "
+          f"oracles; {len(rows)} chunk shapes; rows/s end to end "
+          f"{json.dumps(rates)}; plan cache and peak bytes {json.dumps(stats)}; torch ops per "
+          f"row group {json.dumps(ops)}; kernel launches {json.dumps(launches)}", flush=True)
+    profile_stage("store_sales eager chain (one row group)", lambda: ss_chain(t0), top=4)
+    profile_stage("store_sales pipeline (one row group)", lambda: pipe.run(t0), top=4)
+    return launches
+
+
+def retry_phase(counters, card, ctx):
+    """Phase 24: the retry runtime on the card over q1 batches: a forced
+    retryable OOM mid-stream (RmmSpark.forceRetryOOM), an undersized
+    group_by capacity that re-plans, an injected fault through faultinj's
+    rule file — each exactly equal to the oracle — and RetryOOMError past
+    the budget and past the retry bound."""
+    from spark_rapids_jni_tpu_torch.api import RetryOOMError, RmmSpark
+    from spark_rapids_jni_tpu_torch.runtime import events, faultinj, resource
+
+    tables, want = ctx["tables"], ctx["want"]
+
+    def check(outs, label):
+        for i, (out, w) in enumerate(zip(outs, want)):
+            if q1_rows(out) != w:
+                raise AssertionError(f"retry [{label}] batch {i} differs from the oracle")
+
+    for name in counters:
+        counters[name].launches = 0
+    res = {}
+    with RmmSpark.task(max_retries=3) as task:
+        RmmSpark.forceRetryOOM(task.task_id, num_ooms=1, skip_count=1)
+        check(q1_pipeline("retry_forced").stream(tables, window=2), "forced OOM")
+        res["forced"] = (task.metrics.retries, task.metrics.injected_ooms)
+    retired = [e["attrs"]["retries"] for e in events.of_kind("stream_retire")
+               if e["op"] == "Pipeline.retry_forced"]
+    if res["forced"] != (1, 1) or retired[-len(tables):] != [0, 1, 0, 0]:
+        raise AssertionError(f"forced OOM mid-stream: {res['forced']}, retires {retired}")
+    with resource.task() as task:
+        check(q1_pipeline("retry_small", capacity=2).stream(tables, window=2), "capacity")
+        res["capacity"] = (task.metrics.retries,
+                           task.metrics.final_plans["pipeline.retry_small"]["2.capacity"])
+    if res["capacity"][0] < 1 or res["capacity"][1] < 6:
+        raise AssertionError(f"undersized capacity: {res['capacity']}")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cfg = os.path.join(ROOT, "build", "chip_smoke_faults.json")
+    with open(cfg, "w") as f:
+        json.dump({"opFaults": {"Resource.pipeline.retry_fault": {
+            "injectionType": "retry_oom", "interceptionCount": 2}}}, f)
+    os.environ["FAULT_INJECTOR_CONFIG_PATH"] = cfg
+    faultinj.reset()
+    try:
+        with resource.task() as task:
+            check(q1_pipeline("retry_fault").stream(tables, window=2), "faultinj")
+            res["faultinj"] = task.metrics.injected_ooms
+    finally:
+        del os.environ["FAULT_INJECTOR_CONFIG_PATH"]
+        faultinj.reset()
+        os.remove(cfg)
+    if res["faultinj"] != 2:
+        raise AssertionError(f"faultinj retry_oom: {res['faultinj']} injected")
+    for label, kw, forced in (("budget", {"budget": 4096}, 0), ("bound", {"max_retries": 2}, 5)):
+        try:
+            with resource.task(**kw) as task:
+                resource.force_retry_oom(forced)
+                q1_pipeline(f"retry_{label}", capacity=2).run(tables[0])
+        except RetryOOMError as e:
+            res[label] = f"RetryOOMError after {e.metrics.retries} retries"
+        else:
+            raise AssertionError(f"no RetryOOMError past the {label}")
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    print(f"retry on the card: {json.dumps(res)}; every result exact; kernel launches "
+          f"{json.dumps(launches)}; card: {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     phase_t = [time.perf_counter()]
 
@@ -3019,7 +3616,8 @@ def main() -> int:
     phase_done("8 join card vs cpu")
 
     # ---- 9. the q5 path at SF10, counted
-    launches["q5"] = q5_sf10(counters, card)["murmur3_chain"]
+    q5_launches, q5_ctx = q5_sf10(counters, card)
+    launches["q5"] = q5_launches["murmur3_chain"]
     phase_done("9 q5 sf10")
 
     # ---- 10. host JCUDF codec against the card's rows
@@ -3059,21 +3657,46 @@ def main() -> int:
         # ---- 17. rung 4 through the streamed scan, counted
         launches["scan"] = scan_sf10(counters, card, ss_path, ss_oracles)["murmur3_chain"]
         phase_done("17 scan sf10")
+
+        # ---- 18. Regex at the regex_scan axes, counted; card against CPU
+        launches["regex"] = regex_phase(counters, card)["murmur3_chain"]
+        phase_done("18 regex")
+
+        # ---- 19. ZOrder on rung 1's lineitem batch, counted
+        launches["zorder"] = zorder_phase(counters, card)["murmur3_chain"]
+        phase_done("19 zorder")
+
+        # ---- 20. window and rollup, card against CPU; window over rung 1's batch
+        launches["window"] = window_phase(counters, card, full)["murmur3_chain"]
+        phase_done("20 window/rollup")
+
+        # ---- 21. q1 SF10 through Pipeline.run, stream and two threads, counted
+        q1_launches, q1_ctx = q1_pipeline_phase(counters, card)
+        launches["q1_pipeline"] = q1_launches["murmur3_chain"]
+        phase_done("21 q1 pipeline")
+
+        # ---- 22. one q5 lineitem batch through the Pipeline, counted
+        launches["q5_pipeline"] = q5_pipeline_phase(counters, card, q5_ctx)["murmur3_chain"]
+        del q5_ctx
+        phase_done("22 q5 pipeline")
+
+        # ---- 23. store_sales SF10 through Pipeline.scan_parquet, counted
+        launches["ss_pipeline"] = ss_pipeline_phase(
+            counters, card, ss_path, ss_oracles)["murmur3_chain"]
+        phase_done("23 store_sales pipeline")
+
+        # ---- 24. the retry runtime on the card, counted
+        launches["retry"] = retry_phase(counters, card, q1_ctx)["murmur3_chain"]
+        del q1_ctx
+        phase_done("24 retry")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 18. Regex at the regex_scan axes, counted; card against CPU
-    launches["regex"] = regex_phase(counters, card)["murmur3_chain"]
-    phase_done("18 regex")
-
-    # ---- 19. ZOrder on rung 1's lineitem batch, counted
-    launches["zorder"] = zorder_phase(counters, card)["murmur3_chain"]
-    phase_done("19 zorder")
     for path, count in launches.items():
         if (count >= 1) != (path == "rung 1"):
             raise AssertionError(f"murmur3 launches on the {path} path: {count}")
 
-    # ---- 20. kernel numbers, card, verdict
+    # ---- 25. kernel numbers, card, verdict
     k = timings["keys"]
     print(json.dumps({"kernels": [{
         "name": "murmur3_chain",

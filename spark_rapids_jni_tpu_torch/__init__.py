@@ -28,6 +28,12 @@ Layer map of the ported slices:
                                     regex/compile)
   api.ZOrder                      Z-order interleave, Hilbert index
                                     (ops/zorder)
+  api.Pipeline, pad_string_payloads  fused chains, one program per chunk
+                                    (runtime/pipeline, parallel/distributed
+                                    collect, runtime/explain)
+  api.RmmSpark, RetryOOMError     task-scoped retry runtime (runtime/resource,
+                                    faultinj, flight, trace)
+  ops/window, ops/rollup          window functions, ROLLUP / GROUPING SETS
   runtime/metrics, events, spans  telemetry: counters/gauges/timers, the
                                     event journal, causal spans
   ops/row_conversion_host         host JCUDF codec over native/jcudf_rows.cpp
@@ -66,11 +72,15 @@ from .api import (
     JSONUtils,
     ParquetFooter,
     ParquetReader,
+    Pipeline,
     Regex,
+    RetryOOMError,
+    RmmSpark,
     RowConversion,
     ScanPlan,
     SortOrder,
     ZOrder,
+    pad_string_payloads,
     prefetch_chunks,
     read_table,
     scan_chunks,
@@ -106,11 +116,15 @@ __all__ = [
     "JSONUtils",
     "ParquetFooter",
     "ParquetReader",
+    "Pipeline",
     "Regex",
+    "RetryOOMError",
+    "RmmSpark",
     "RowConversion",
     "ScanPlan",
     "SortOrder",
     "ZOrder",
+    "pad_string_payloads",
     "prefetch_chunks",
     "read_table",
     "scan_chunks",

@@ -5,10 +5,18 @@ Python class per Java class (PyTorch twin of the JAX package's
 ``ZOrder``, the Parquet ingress (``ParquetFooter``, ``ParquetReader``,
 ``read_table``, and the streamed scan ``ScanPlan``, ``prefetch_chunks``,
 ``scan_chunks``), the relational extensions ``SortOrder``,
-``Aggregation``, ``Filter`` and ``Join``, and ``Regex``."""
+``Aggregation``, ``Filter`` and ``Join``, and ``Regex``; the fused
+``Pipeline`` with ``pad_string_payloads``, and the task-scoped resource
+manager ``RmmSpark`` with its terminal ``RetryOOMError``.
+
+Every op class's entries run through ``_instrument``: the fault shim
+(``runtime/faultinj.py``), an NVTX range (``runtime/trace.py``) and a
+telemetry op sample with its causal span."""
 
 from __future__ import annotations
 
+import functools
+import time
 from typing import List, Optional, Sequence
 
 from .columnar.column import Column
@@ -29,6 +37,14 @@ from .ops import zorder as _zorder
 from .ops.parquet_footer import ParquetFooter  # noqa: F401
 from .ops.parquet_reader import ParquetReader, read_table  # noqa: F401
 from .runtime.scan import ScanPlan, prefetch_chunks, scan_chunks  # noqa: F401  (streamed scan)
+from .runtime import events as _events
+from .runtime import faultinj as _faultinj
+from .runtime import metrics as _metrics
+from .runtime import pipeline as _pipeline
+from .runtime import resource as _resource
+from .runtime import spans as _spans
+from .runtime import trace as _trace
+from .runtime.errors import RetryOOMError  # noqa: F401  (terminal retry error)
 
 
 class CastStrings:
@@ -191,3 +207,110 @@ class Regex:
     def regexpExtract(cv: Column, pattern: str, idx: int = 1) -> Column:
         # Spark's regexp_extract defaults the group index to 1
         return _regex.regexp_extract(cv, pattern, idx)
+
+
+# ---- fused execution and the resource manager ----
+
+Pipeline = _pipeline.Pipeline
+pad_string_payloads = _pipeline.pad_string_payloads
+
+
+class RmmSpark:
+    """RmmSpark.java — task-scoped resource manager control surface
+    (runtime/resource.py). Not routed through the fault shim: it is the
+    control plane that reacts to faults, not an op. Python callers
+    normally use ``runtime.resource`` directly (``with
+    resource.task(budget): ...``); this class keeps the Java argument
+    orders."""
+
+    task = staticmethod(_resource.task)
+    metrics = staticmethod(_resource.metrics)
+
+    @staticmethod
+    def currentThreadIsDedicatedToTask(task_id: int):
+        _resource.start_task(task_id)
+
+    @staticmethod
+    def taskDone(task_id: int):
+        return _resource.task_done(task_id)
+
+    @staticmethod
+    def forceRetryOOM(task_id: int, num_ooms: int = 1, skip_count: int = 0):
+        _resource.force_retry_oom(num_ooms, skip_count, task_id=task_id)
+
+    @staticmethod
+    def getAndResetNumRetryThrow(task_id: int) -> int:
+        return _resource.get_and_reset_num_retry(task_id)
+
+    @staticmethod
+    def getMaxMemoryEstimated(task_id: int) -> int:
+        m = _resource.metrics(task_id)
+        if m is None:
+            raise KeyError(f"unknown task id {task_id}")
+        return m.peak_bytes
+
+
+def _instrument(cls):
+    """Route every facade entry through the fault-injection shim, an
+    NVTX range and a telemetry op sample — the op boundary is the analog
+    of the CUDA API boundary the reference's CUPTI callback intercepts
+    (faultinj.cu:154-341), of its NVTX function ranges
+    (NativeParquetJni.cpp CUDF_FUNC_RANGE), and of the plugin's
+    per-operator GpuMetric accumulators. With SPARK_JNI_TPU_METRICS=off
+    the extra cost is one enabled() check plus one (emission-free) span
+    push/pop: the flight recorder's active stack names the op anyway."""
+    for name, member in list(vars(cls).items()):
+        if not isinstance(member, staticmethod):
+            continue
+        raw = member.__func__
+        op_name = f"{cls.__name__}.{name}"
+
+        def wrapper(*args, __raw=raw, __op=op_name, **kwargs):
+            if not _metrics.enabled():
+                with _spans.span("op", __op, emit_end=False):
+                    _faultinj.inject_point(__op)
+                    with _trace.op_range(__op):
+                        return __raw(*args, **kwargs)
+            rows_in, bytes_in = _metrics._rows_bytes(args)
+            # causal span for the op: every journal event inside the
+            # call — op_begin/op_end, injected faults — is stamped with
+            # it; record_op's op_end is its close event
+            with _spans.span("op", __op, emit_end=False):
+                _faultinj.inject_point(__op)
+                _events.emit("op_begin", op=__op, rows_in=rows_in, bytes_in=bytes_in)
+                t0 = time.perf_counter()
+                try:
+                    with _trace.op_range(__op):
+                        out = __raw(*args, **kwargs)
+                except Exception as e:
+                    _metrics.record_op(
+                        __op, (time.perf_counter() - t0) * 1000, rows_in=rows_in,
+                        bytes_in=bytes_in, ok=False, error=type(e).__name__,
+                    )
+                    raise
+                rows_out, bytes_out = _metrics._rows_bytes(out)
+                _metrics.record_op(
+                    __op, (time.perf_counter() - t0) * 1000, rows_in=rows_in,
+                    bytes_in=bytes_in, rows_out=rows_out, bytes_out=bytes_out,
+                )
+            return out
+
+        functools.wraps(raw)(wrapper)
+        setattr(cls, name, staticmethod(wrapper))
+    return cls
+
+
+for _cls in (
+    CastStrings,
+    DecimalUtils,
+    MapUtils,
+    JSONUtils,
+    RowConversion,
+    ZOrder,
+    SortOrder,
+    Aggregation,
+    Filter,
+    Join,
+    Regex,
+):
+    _instrument(_cls)

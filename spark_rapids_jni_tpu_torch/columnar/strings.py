@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops._strategy import fused
 from ..ops.ragged import ragged_pack, ragged_unpack
 from .column import Column, make_string_column
 
@@ -60,7 +61,8 @@ def from_char_matrix(chars, lengths, validity=None, total=None, dtype=None) -> C
         ]
     )
     if total is None:
-        total = int(offsets[-1])
+        # inside a fused chain the payload is a capacity, as under jit
+        total = chars.shape[0] * chars.shape[1] if fused() else int(offsets[-1])
     data = ragged_pack(chars.clamp(min=0).to(torch.uint8), offsets[:-1], lengths, total)
     if dtype is not None:
         return Column(dtype, data, validity, offsets)

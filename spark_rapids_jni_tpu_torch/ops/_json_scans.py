@@ -41,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.consts import device_table
 from .segmented import associative_scan, lane_count, lane_ext, lane_scan
 
 QUOTE = ord('"')
@@ -399,14 +400,14 @@ def _token_lane(chars, scalar_start, scalar_char):
     Errors read back only at token ends (``_token_errors_eval``)."""
     M, gen_b, reset_b, comp, _acc = _scalar_monoid_tables()
     dev = chars.device
-    comp_t = torch.as_tensor(np.asarray(comp).reshape(-1), dtype=_I32).to(dev)
+    comp_t = device_table(np.asarray(comp, np.int64).reshape(-1).tolist(), _I32, dev)
     b = torch.where(chars >= 0, chars, 256)
     # one [3*257] lift table: case 0 = reset (token start), 1 = plain
     # token char, 2 = identity
     lift = np.zeros((3, 257), np.int32)
     lift[0], lift[1] = reset_b, gen_b
     case = torch.where(scalar_start, 0, torch.where(scalar_char, 1, 2))
-    ids = torch.as_tensor(lift.reshape(-1)).to(dev)[(case * 257 + b).long()]
+    ids = device_table(lift.reshape(-1).tolist(), _I32, dev)[(case * 257 + b).long()]
 
     def comb(x, y):
         return comp_t[(x * M + y).long()]
@@ -415,7 +416,8 @@ def _token_lane(chars, scalar_start, scalar_char):
 
 
 def _token_errors_eval(pref, scalar_end):
-    acc_at0 = torch.as_tensor(np.asarray(_scalar_monoid_tables()[4], np.bool_)).to(pref.device)
+    acc_at0 = device_table(np.asarray(_scalar_monoid_tables()[4], np.bool_).tolist(), torch.bool,
+                           pref.device)
     return scalar_end & ~acc_at0[pref.long()]
 
 

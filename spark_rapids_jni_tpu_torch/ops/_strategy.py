@@ -20,6 +20,7 @@ another tenant's slice of a shared thread).
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import os
 from typing import Optional
@@ -115,3 +116,26 @@ def monoid_max_states() -> int:
         raise ValueError(
             f"{MAX_STATES_ENV}={raw!r}: expected an integer state count"
         ) from None
+
+
+# inside a fused Pipeline chain (runtime/pipeline.py) every stage runs
+# with no host sync: the ops take the forms the JAX package's take under
+# jit — a pinned width is counted by the chain instead of checked here,
+# all-valid masks stay masks, payload sizes are capacities, and a sort
+# orders by every word instead of reading which ones vary
+_ctx_fused: "contextvars.ContextVar[bool]" = contextvars.ContextVar("sprt_fused", default=False)
+
+
+def fused() -> bool:
+    """True inside a fused Pipeline chain: ops must not sync the host."""
+    return _ctx_fused.get()
+
+
+@contextlib.contextmanager
+def fusing():
+    """Run the enclosed ops in their sync-free (fused chain) forms."""
+    tok = _ctx_fused.set(True)
+    try:
+        yield
+    finally:
+        _ctx_fused.reset(tok)

@@ -46,6 +46,7 @@ from ..columnar.dtypes import DECIMAL128, FLOAT64, INT64, DType
 from ..columnar.table import Table
 from ..utils import int256 as u256
 from ..utils.int128 import M32, lsr
+from ._strategy import fused
 from .segmented import (
     boundary_from_operands,
     group_starts,
@@ -247,7 +248,12 @@ def _aggregate(table, key_indices, aggs, capacity, mats, perm, seg, num_groups, 
             win = seg_scan_argext(ops, seg, is_max=not is_min)
             win_g = win[ends.clamp(0, safe_n).long()]
             orig_rows = perm[win_g.clamp(0, safe_n).long()]
-            kc = gather_column(c, orig_rows)
+            if fused():
+                # no payload-size sync in a fused chain: gather from the
+                # pinned-width char matrix into a capacity-sized payload
+                kc = gather_column(c, orig_rows, mats.get(agg.column), True)
+            else:
+                kc = gather_column(c, orig_rows)
             out_cols.append(Column(rdt, kc.data, group_validity, kc.offsets))
         else:
             raise ValueError(f"unknown aggregate op {agg.op!r}")

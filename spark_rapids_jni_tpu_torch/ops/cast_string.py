@@ -27,6 +27,8 @@ from ..columnar.dtypes import DECIMAL32, DECIMAL64, DECIMAL128, DType
 from ..columnar.strings import to_char_matrix
 from ..runtime.errors import CapacityExceededError, CastException
 from ..utils import int128 as u128
+from ..utils.consts import device_table
+from ._strategy import fused
 from .ragged import lane_select
 from .segmented import lane_count
 
@@ -61,7 +63,7 @@ def _first_true(mask, default):
 
 def _table(values, device):
     """int64 tensor holding the 64-bit patterns of ``values``."""
-    return torch.tensor([u128.s64(v) for v in values], dtype=_I64, device=device)
+    return device_table([u128.s64(v) for v in values], _I64, device)
 
 
 def _prologue(chars, lengths, strip):
@@ -165,8 +167,9 @@ def _raise_first_error(col: Column, bad: torch.Tensor):
 def _check_width_eager(col: Column, width):
     """A call with a pinned ``width`` must not silently truncate
     (to_char_matrix clamps): the max length is one host sync away, so
-    refuse instead."""
-    if width is None:
+    refuse instead. Inside a fused chain the chain counts the overflow
+    (runtime/pipeline.py) and nothing syncs here."""
+    if width is None or fused():
         return
     mx = int(col.string_lengths().max()) if len(col) else 0
     if mx > width:
@@ -180,7 +183,10 @@ def _check_width_eager(col: Column, width):
 
 
 def _validity_or_none(valid):
-    """Compact an all-valid mask to None (one host sync)."""
+    """Compact an all-valid mask to None (one host sync; inside a fused
+    chain the mask stays, and the chain's collect compacts it)."""
+    if fused():
+        return valid
     return None if bool(valid.all()) else valid
 
 
@@ -490,7 +496,7 @@ def _masked_sel_f64(tbl, idx):
     """``tbl[idx]`` as float64, 0.0 where ``idx`` is outside the table
     (the JAX package's masked-select chain; on the card one gather from
     a small device table gives the same values)."""
-    t = torch.tensor(tbl, dtype=torch.float64, device=idx.device)
+    t = device_table(tbl, torch.float64, idx.device)
     inside = (idx >= 0) & (idx < len(tbl))
     got = t[torch.clamp(idx, 0, len(tbl) - 1).long()]
     return torch.where(inside, got, torch.zeros((), dtype=torch.float64, device=idx.device))

@@ -154,7 +154,7 @@ def _add_sub_scales_any(a_limbs, b_limbs, a_scale, b_scale, target_scale, is_sub
     guard) first."""
     dev = a_limbs.device
     a_scale, b_scale, target_scale = (
-        torch.as_tensor(s, dtype=torch.int64, device=dev) for s in (a_scale, b_scale, target_scale)
+        torch.full((), s, dtype=torch.int64, device=dev) for s in (a_scale, b_scale, target_scale)
     )
     a = u256.from_i128_limbs(a_limbs)
     b = u256.from_i128_limbs(b_limbs)

@@ -240,10 +240,11 @@ def boundary_from_operands(sorted_ops: Sequence[torch.Tensor]) -> torch.Tensor:
     """bool [n] run-start flags from sorted key operands (1-D or
     [n, W] word matrices)."""
     n = sorted_ops[0].shape[0]
-    boundary = torch.zeros(n, dtype=torch.bool, device=sorted_ops[0].device)
+    # the first row starts a run (built on the device: a scalar store
+    # would copy from the host)
+    boundary = torch.arange(n, device=sorted_ops[0].device) == 0
     if n == 0:
         return boundary
-    boundary[0] = True
     for op in sorted_ops:
         d = op[1:] != op[:-1]
         if d.dim() > 1:

@@ -36,6 +36,7 @@ from ..columnar import strings as strs
 from ..columnar.column import Column
 from ..columnar.table import Table
 from ..utils.int128 import SIGN
+from ._strategy import fused
 from .rowgather import pack_order_words
 
 
@@ -147,8 +148,13 @@ def stable_lex_order(operands: Sequence[torch.Tensor]):
     n = operands[0].shape[0]
     words = pack_order_words([_integer_key(o) for o in operands])
     perm = torch.arange(n, device=words.device)
-    # host sync: which words vary (a constant word orders nothing)
-    varying = (words != words[:1]).any(dim=0).tolist()
+    if fused():
+        # no host sync inside a fused chain: a constant word sorts as
+        # the identity, so sorting by every word gives the same order
+        varying = [True] * words.shape[1]
+    else:
+        # host sync: which words vary (a constant word orders nothing)
+        varying = (words != words[:1]).any(dim=0).tolist()
     for w in range(words.shape[1] - 1, -1, -1):
         if varying[w]:
             key = words[:, w] ^ SIGN  # unsigned word order as int64

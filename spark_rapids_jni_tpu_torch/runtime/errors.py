@@ -58,3 +58,18 @@ class CapacityExceededError(ValueError):
         self.needed = needed
         self.granted = granted
         self.breakdown = breakdown
+
+
+class RetryOOMError(MemoryError):
+    """Adaptive capacity retry exhausted: the task's retry bound or
+    byte budget ran out before a plan fit (the terminal form of the
+    reference's RetryOOM/SplitAndRetryOOM chain, RmmSpark.java).
+
+    Carries the task's metrics (``.metrics``, a
+    ``resource.TaskMetrics``) so the failure is diagnosable: per-op
+    attempts, the stage that kept overflowing, and the final capacity
+    plan that still did not fit."""
+
+    def __init__(self, message: str, metrics=None):
+        super().__init__(message)
+        self.metrics = metrics

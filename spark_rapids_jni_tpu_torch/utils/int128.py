@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from .consts import device_table
+
 SIGN = -(1 << 63)  # int64 bits of 2^63
 M32 = 0xFFFFFFFF
 _U64 = (1 << 64) - 1
@@ -146,8 +148,8 @@ POW10 = tuple(10**i for i in range(39))
 
 def pow10_table(device="cuda"):
     """(lo[39], hi[39]) int64 limb tensors of 10^0..10^38 on ``device``."""
-    lo = torch.tensor([s64(p) for p in POW10], dtype=torch.int64, device=device)
-    hi = torch.tensor([p >> 64 for p in POW10], dtype=torch.int64, device=device)
+    lo = device_table([s64(p) for p in POW10], torch.int64, device)
+    hi = device_table([p >> 64 for p in POW10], torch.int64, device)
     return lo, hi
 
 

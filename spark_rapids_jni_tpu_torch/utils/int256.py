@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import int128 as u128
+from .consts import device_table
 from .int128 import lsr, s64, ult
 
 
@@ -178,7 +179,7 @@ _POW10_256 = tuple(const(10**e) for e in range(78))
 
 def pow10_table(max_exp: int = 77, device="cuda") -> torch.Tensor:
     """int64 [max_exp + 1, 4] limbs of 10^0..10^max_exp on ``device``."""
-    return torch.tensor(_POW10_256[: max_exp + 1], dtype=torch.int64, device=device)
+    return device_table(_POW10_256[: max_exp + 1], torch.int64, device)
 
 
 def pow10(exp):
@@ -309,7 +310,7 @@ def divmod_pow10(n_mag, exp):
     remainder u128, divisor u128) — the remainder and divisor feed the
     HALF_UP predicate."""
     idx = exp.long()
-    mrow = torch.tensor(_RECIP_POW10, dtype=torch.int64, device=exp.device)[idx]
+    mrow = device_table(_RECIP_POW10, torch.int64, exp.device)[idx]
     m = tuple(mrow[..., t] for t in range(6))
     prod = _mul_full(n_mag, m)  # 10 limbs
     # q = full product >> 383: limbs 5..9 shifted down 63 bits

@@ -322,3 +322,48 @@ def test_scan_default_device_is_cuda(tmp_path, entry):
             assert sum(c.num_rows for c in port.prefetch_chunks(plan)) == 100
     else:
         assert sum(c.num_rows for c in make(path, device="cpu")) == 100
+
+
+# The modules of the window/rollup and fused-execution slice, imported
+# the same way.
+PIPELINE_SLICE_MODULES = [
+    ("spark_rapids_jni_tpu_torch.ops.window", "window"),
+    ("spark_rapids_jni_tpu_torch.ops.rollup", "grouping_sets"),
+    ("spark_rapids_jni_tpu_torch.runtime.errors", "RetryOOMError"),
+    ("spark_rapids_jni_tpu_torch.runtime.faultinj", "inject_point"),
+    ("spark_rapids_jni_tpu_torch.runtime.trace", "op_range"),
+    ("spark_rapids_jni_tpu_torch.runtime.flight", "maybe_record"),
+    ("spark_rapids_jni_tpu_torch.runtime.resource", "run_plan_deferred"),
+    ("spark_rapids_jni_tpu_torch.runtime.pipeline", "Pipeline"),
+    ("spark_rapids_jni_tpu_torch.runtime.explain", "render_journal"),
+    ("spark_rapids_jni_tpu_torch.parallel.distributed", "collect_table"),
+    ("spark_rapids_jni_tpu_torch.explain", "main"),
+    ("spark_rapids_jni_tpu_torch.flight", "main"),
+    ("spark_rapids_jni_tpu_torch.api", "RmmSpark"),
+]
+
+
+@pytest.mark.parametrize("module,attr", PIPELINE_SLICE_MODULES)
+def test_pipeline_slice_module_imports_without_jax(module, attr):
+    test_q5_slice_module_imports_without_jax(module, attr)
+
+
+def test_scan_parquet_default_device_is_cuda(tmp_path):
+    """``Pipeline.scan_parquet`` lands its chunks on the card by default;
+    without one it raises before planning instead of reading onto the
+    CPU."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    from spark_rapids_jni_tpu_torch.api import Pipeline
+
+    path = str(tmp_path / "t.parquet")
+    chip_smoke.write_store_sales(path, 100, 64)
+    p = Pipeline("boundary").select([0])
+    if torch.cuda.is_available():
+        out = p.scan_parquet(path)
+        assert out[0].columns[0].data.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        p.scan_parquet(path)
+    assert sum(t.num_rows for t in p.scan_parquet(path, device="cpu")) == 100

@@ -102,7 +102,10 @@ def sc_snapshot_delta(m, e, s, tmp, mp):
 
 
 def sc_report(m, e, s, tmp, mp):
+    # the sink footer counts process-wide write errors and rotations,
+    # which an earlier test file in this process may have left nonzero
     mp.setattr(m, "_sink_errors", 0)
+    mp.setattr(m, "_rotations", 0)
     empty = m.report()
     assert empty == "(no telemetry recorded)"
     m.counter("resource.retries").inc(3)
@@ -261,6 +264,7 @@ def sc_event_ring(m, e, s, tmp, mp):
     assert [x["op"] for x in evs] == ["X.6", "X.7", "X.8", "X.9"]
     assert e.dropped() == 6
     mp.setattr(m, "_sink_errors", 0)
+    mp.setattr(m, "_rotations", 0)
     rep = m.report()
     assert "6 dropped" in rep and "ring capacity 4" in rep
     e.set_capacity(2)
