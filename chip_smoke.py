@@ -125,8 +125,37 @@ Phases, each fatal on failure:
      an undersized group-by capacity that re-plans, a retry_oom fault
      from a faultinj rule file (results exact), and RetryOOMError past a
      byte budget and past the retry bound
-  25. one JSON line of kernel numbers (with murmur3's launches on every
-     path: 1 on rung 1, 0 on the others), the card line, then the verdict
+  25. the exchange, card against CPU: over 8 shards on the card and 8
+     on the CPU (``Mesh([dev] * 8)``), the mixed and join batches of 64 Ki
+     rows through hash_shuffle (string keys, a truncating wire pin, a
+     salt, an undersized bucket), partition_exchange, the distributed
+     group-by (every agg, string keys, overflow_detail), the co-
+     partitioned joins of every kind, the broadcast joins and the
+     distributed sort: each shard's live rows, occupancy and every
+     overflow count equal; the kernel against its plain version on the
+     exchange's own key planes
+  26. rung 3 in its full form, TPC-H q5 at SF10 over the exchange: phase
+     9's tables on 8 shards of the card; the build (orders of 1994 JOIN
+     customer) once, then per 4 Mi lineitem batch JOIN the build, JOIN
+     supplier, the region mask, the revenue product and the distributed
+     group-by, all through the mesh executors under one task scope with
+     the capacity-feedback memo; every batch and the final rows exact
+     against the host oracle; rows/s beside phase 9's, the exchange's
+     ms per step and bytes, padding waste, re-plans, torch ops, the idle
+     share, peak memory, murmur3 launches and the kernel at this shape
+  27. the mesh executors (resource.group_by / join / shuffle) over 8
+     shards under the retry runtime: undersized capacities that re-plan,
+     RmmSpark.forceRetryOOM, a faultinj retry_oom rule (results exact
+     against the one-card eager ops), RetryOOMError past a byte budget;
+     the memo and program-cache rows
+  28. the sharded stream: phase 21's q1 chain and phase 22's q5 join
+     chain (broadcast and co-partitioned build sides) through
+     Pipeline.stream(window=2, shard=<8-shard Mesh>) in turns with the
+     unsharded stream, value-identical; rows/s, ops per chunk, plan
+     misses and hits; one sharded graph dispatch under sync debug mode
+  29. one JSON line of kernel numbers (with murmur3's launches on every
+     path: rung 1 and the exchange paths 26-28 launch it, the others
+     0), the card line, then the verdict
 
 Exits non-zero, printing no verdict, without a card or without the port
 beside it. Data is made from fixed seeds.
@@ -1144,7 +1173,8 @@ def q5_sf10(counters, card):
     print(f"q5 sf10 peak device memory: {torch.cuda.max_memory_allocated()} bytes "
           f"(tables resident: {data_bytes}); card: {card}", flush=True)
     ctx = {"build": built["build"], "supplier": t["supplier"], "lineitem0": li0,
-           "partial0": parts[0]["partial"], "want0": sorted(q5_oracle(d, 0, Q5_BATCH).items())}
+           "partial0": parts[0]["partial"], "want0": sorted(q5_oracle(d, 0, Q5_BATCH).items()),
+           "tables": t, "data": d, "rows_per_s": n_li / total_s}
     return launches, ctx
 
 
@@ -3450,6 +3480,612 @@ def retry_phase(counters, card, ctx):
     return launches
 
 
+# ---- the exchange: Spark-hash shuffle over a mesh of 8 shards ----
+
+N_SHARDS = 8  # shards of the exchange phases, all on the one card
+Q5_ASIA = Q5_REGIONS.index(Q5_REGION)
+
+
+def card_mesh(device="cuda", n=N_SHARDS):
+    """A mesh of ``n`` shards on one device (``Mesh([dev] * n)``)."""
+    from spark_rapids_jni_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh([device] * n)
+
+
+def pad_rows(table, multiple):
+    """(table padded with dead rows to a multiple of ``multiple``, live
+    mask or None)."""
+    from spark_rapids_jni_tpu_torch.runtime.pipeline import _pad_rows_traced
+
+    n = table.num_rows
+    pad = (-n) % multiple
+    if not pad:
+        return table, None
+    dev = table.columns[0].device
+    return _pad_rows_traced(table, pad), torch.arange(n + pad, device=dev) < n
+
+
+def shard_live_rows(sharded, occ):
+    """Each shard's live rows in order, in the interop numpy form."""
+    from spark_rapids_jni_tpu_torch.columnar.interop import table_to_numpy
+    from spark_rapids_jni_tpu_torch.parallel.distributed import collect_table
+
+    return [table_to_numpy(collect_table(s, o)) for s, o in zip(sharded.shards, occ)]
+
+
+def host_overflow(ovf):
+    if isinstance(ovf, dict):
+        return {k: int(v) for k, v in ovf.items()}
+    return int(ovf)
+
+
+EXCHANGE_AGGS = (("sum", 3), ("count", None), ("min", 4), ("max", 1), ("mean", 5),
+                 ("sum", 6), ("mean", 4), ("count", 2))
+
+
+def exchange_ops(t, lt, rt, occ, occ_l, occ_r, mesh):
+    """Every exchange operator over one device's tables on an 8-shard
+    mesh: name -> (ShardedTable, occupied masks, overflow)."""
+    from spark_rapids_jni_tpu_torch.ops.aggregate import Agg
+    from spark_rapids_jni_tpu_torch.ops.sort import SortKey
+    from spark_rapids_jni_tpu_torch.parallel import distributed as D
+    from spark_rapids_jni_tpu_torch.parallel import shuffle as S
+
+    n_local = t.num_rows // mesh.size
+    out = {
+        # strings, a wire pin that truncates, a salt, an undersized bucket
+        "hash_shuffle": S.hash_shuffle(
+            t, [0, 1, 3], mesh, capacity=n_local // mesh.size // 2, occupied=occ,
+            string_widths={1: 16}, wire_widths={3: 16}, salt=1),
+        "hash_shuffle fixed keys": S.hash_shuffle(t, [3, 10], mesh, occupied=occ),
+        "hash_shuffle decimal128 key": S.hash_shuffle(t, [6], mesh, compress=True),
+        "partition_exchange": S.partition_exchange(
+            t, (t.columns[10].data % mesh.size).to(torch.int32), mesh, occupied=occ,
+            string_widths={1: 16}),
+        "group_by": D.distributed_group_by(
+            t, [0, 1], [Agg(a, c) for a, c in EXCHANGE_AGGS], mesh, occupied=occ,
+            string_widths={1: 16}, overflow_detail=True),
+        "group_by small capacity": D.distributed_group_by(
+            t, [10], [Agg("sum", 5), Agg("count")], mesh, capacity=2, overflow_detail=True),
+        "sort": D.distributed_sort(t, [SortKey(1), SortKey(3, False)], mesh, occupied=occ,
+                                   string_widths={1: 16}),
+    }
+    widths = {1: 32, 5: 16}
+    # per-shard output rows: ~1.3x the densest shard's need at 64 Ki
+    # rows a side (the empty-string key makes the string layout skewed)
+    cap = lt.num_rows
+    for how in HOWS:
+        out[f"join {how}"] = D.distributed_join(
+            lt, rt, [0], [0], mesh, how, left_occupied=occ_l, right_occupied=occ_r,
+            out_capacity=cap, left_string_widths=widths, right_string_widths=widths,
+            overflow_detail=True)
+    out["join string+int32 inner"] = D.distributed_join(
+        lt, rt, [1, 4], [1, 4], mesh, "inner", out_capacity=3 * cap, left_string_widths=widths,
+        right_string_widths=widths, left_wire_widths={4: 8}, right_wire_widths={4: 8},
+        overflow_detail=True)
+    small = rt.num_rows // 16
+    rt_small = head_rows(rt, small)
+    for how in ("inner", "left", "left_semi", "left_anti"):
+        out[f"broadcast {how}"] = D.distributed_join_broadcast(
+            lt, rt_small, [0], [0], mesh, how, left_occupied=occ_l,
+            right_occupied=occ_r[:small], out_capacity=cap, left_string_widths=widths,
+            right_string_widths=widths, overflow_detail=True)
+    return out
+
+
+def head_rows(t, n):
+    """The first ``n`` rows of ``t`` (varlen payloads kept whole)."""
+    from spark_rapids_jni_tpu_torch import Column, Table
+
+    return Table([Column(c.dtype, c.data if c.is_varlen else c.data[:n],
+                         None if c.validity is None else c.validity[:n],
+                         None if c.offsets is None else c.offsets[:n + 1])
+                  for c in t.columns], t.names)
+
+
+def exchange_card_vs_cpu(n, card):
+    """Phase 25: hash_shuffle, partition_exchange, distributed group-by,
+    joins (co-partitioned and broadcast) and sort over 8 shards on the
+    card and 8 shards on the CPU, same inputs: each shard's live rows and
+    occupancy and every overflow count must be equal. Then the kernel
+    against its plain version on the exchange's own key planes."""
+    from spark_rapids_jni_tpu_torch import Table
+    from spark_rapids_jni_tpu_torch.columnar.interop import table_from_numpy
+    from spark_rapids_jni_tpu_torch.kernels import murmur3
+
+    spec = mixed_spec(n)
+    specs = (join_spec(n, 21), join_spec(n, 22, long_strings=True))
+    rng = np.random.default_rng(25)
+    masks = [rng.random(n) < p for p in (0.7, 0.8, 0.8)]
+    t0 = time.perf_counter()
+    results, tables = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = table_from_numpy(spec, device=dev)
+        lt, rt = (table_from_numpy(s, device=dev) for s in specs)
+        occ, occ_l, occ_r = (torch.from_numpy(m).to(dev) for m in masks)
+        res = exchange_ops(t, lt, rt, occ, occ_l, occ_r, card_mesh(dev))
+        results[dev] = {k: (shard_live_rows(r[0], r[1]), [o.cpu().numpy() for o in r[1]],
+                            host_overflow(r[2])) for k, r in res.items()}
+        tables[dev] = t
+    for name, (want, want_occ, want_ovf) in results["cpu"].items():
+        got, got_occ, got_ovf = results["cuda"][name]
+        if got_ovf != want_ovf:
+            raise AssertionError(f"exchange card vs cpu [{name}]: overflow {got_ovf} != {want_ovf}")
+        for s, (g, w, go, wo) in enumerate(zip(got, want, got_occ, want_occ)):
+            if not same_array(go, wo) or len(g) != len(w):
+                raise AssertionError(f"exchange card vs cpu [{name}]: shard {s} occupancy")
+            for i, (gc, wc) in enumerate(zip(g, w)):
+                for key in ("data", "validity", "offsets"):
+                    if not same_array(gc[key], wc[key]):
+                        raise AssertionError(
+                            f"exchange card vs cpu [{name}]: shard {s} column {i} {key}")
+    # the kernel against its plain version on the exchange's key planes
+    t = tables["cuda"]
+    words, valids, plan = murmur3.table_plan(Table([t.columns[3], t.columns[10]]))
+    got = murmur3.hash_planes(words, valids, plan, 42)
+    if not torch.equal(got, murmur3.hash_planes_plain(words, valids, plan, 42)):
+        raise AssertionError("exchange: murmur3 kernel != plain on the exchange's key planes")
+    ovf = {k: v[2] for k, v in results["cpu"].items()
+           if (any(v[2].values()) if isinstance(v[2], dict) else v[2])}
+    live = {k: sum(len(s[0]["data"]) if s else 0 for s in v[0])
+            for k, v in results["cpu"].items()}
+    print(f"exchange card vs cpu: {len(live)} operators over {N_SHARDS} shards exact shard by "
+          f"shard at {n} rows in {time.perf_counter() - t0:.1f} s; live rows "
+          f"{json.dumps(live)}; nonzero overflow {json.dumps(ovf)}; kernel == plain on the "
+          f"exchange key planes; card: {card}", flush=True)
+
+
+def q5_exchange_build(t, mesh, exe):
+    """q5's build side over the exchange, once per query: the customers
+    carry their nation's name and region (the 25-row nation table joined
+    on the card), then orders of 1994 (a live mask) JOIN customer on
+    o_custkey = c_custkey through the mesh executor, collected and padded
+    to a mesh multiple: (o_orderkey, o_custkey, c_custkey, c_nationkey,
+    n_name, n_regionkey) and its live mask."""
+    from spark_rapids_jni_tpu_torch import Table
+    from spark_rapids_jni_tpu_torch.api import Join
+
+    # c_custkey, c_nationkey, n_nationkey, n_name, n_regionkey
+    cust = Join.join(t["customer"], t["nation"], [1], [0])
+    cust = Table([cust.columns[0], cust.columns[1], cust.columns[3], cust.columns[4]])
+    orders = t["orders"]
+    date = orders.columns[2].data
+    live = (date >= Q5_DATE_LO) & (date < Q5_DATE_HI)
+    n_local = orders.num_rows // mesh.size
+    t1 = exe.join(Table(orders.columns[:2]), cust, [1], [0], mesh, left_occupied=live,
+                  shuffle_capacity=n_local // mesh.size + n_local // (4 * mesh.size),
+                  out_capacity=n_local // 4, right_string_widths={2: 16})
+    return pad_rows(t1, mesh.size)
+
+
+Q5_JOIN_CAPACITIES = {  # per 4 Mi lineitem batch over 8 shards: (shuffle, output) rows
+    "join_orders": (73_728, 98_304),
+    "join_supplier": (12_288, 8_192),
+}
+
+
+def q5_exchange_batch(li, build, build_live, supplier, mesh, exe, tick=None, caps=None):
+    """q5 over one lineitem batch on the mesh, the JAX package's q5
+    shape (tests/test_tpch_q5.py): lineitem JOIN the build on l_orderkey,
+    JOIN supplier on (l_suppkey, c_nationkey) = (s_suppkey,
+    s_nationkey), the region mask, the revenue product, then the
+    distributed group-by on n_name, every step through the resource
+    executors; ``caps`` (default ``Q5_JOIN_CAPACITIES``) gives each
+    join's starting (shuffle, output) capacities per shard. Returns
+    (collected (n_name, revenue) Table, the padded join outputs, whether
+    a live product overflowed)."""
+    from spark_rapids_jni_tpu_torch import Table
+    from spark_rapids_jni_tpu_torch.api import Aggregation
+    from spark_rapids_jni_tpu_torch.parallel.mesh import ShardedTable
+
+    tick = tick or (lambda stage: None)
+    caps = caps or Q5_JOIN_CAPACITIES
+    li, li_live = pad_rows(li, mesh.size)
+    sc, oc = caps["join_orders"]
+    # l_orderkey, l_suppkey, price, disc, o_orderkey, o_custkey, c_custkey,
+    # c_nationkey, n_name, n_regionkey
+    j1, occ1 = exe.join(li, build, [0], [0], mesh, left_occupied=li_live,
+                        right_occupied=build_live, shuffle_capacity=sc, out_capacity=oc,
+                        right_string_widths={4: 16}, collect=False)
+    tick("join_orders")
+    sc, oc = caps["join_supplier"]
+    # + s_suppkey, s_nationkey
+    j2, occ2 = exe.join(j1, supplier, [1, 7], [0, 1], mesh, left_occupied=occ1,
+                        shuffle_capacity=sc, out_capacity=oc, left_string_widths={8: 16},
+                        collect=False)
+    tick("join_supplier")
+    parts, live, overflow = [], [], []
+    for s, part in enumerate(j2.shards):
+        rev = disc_price(part.columns[2].data, part.columns[3].data)
+        keep = occ2[s] & (part.columns[9].data == Q5_ASIA)
+        overflow.append((rev.columns[0].data.to(torch.bool) & keep).any())
+        parts.append(Table([part.columns[8], rev.columns[1]]))
+        live.append(keep)
+    tick("region+revenue")
+    out = exe.group_by(ShardedTable(parts, mesh), [0], [Aggregation.Agg("sum", 1)], mesh,
+                       capacity=32, occupied=live, string_widths={0: 16})
+    tick("group_by")
+    return out, {"join_orders": (j1, occ1), "join_supplier": (j2, occ2)}, torch.stack(overflow).any()
+
+
+def exchange_breakdown(li, mesh, capacity):
+    """One lineitem batch's exchange on l_orderkey (join_orders' left
+    side) step by step, each step ended by a device sync (host clock,
+    ms): plan (wire planes), hash (murmur3 placement), pack (the send
+    buckets), move (all_to_all), unpack (receive masks and tables).
+    Also the bytes of every send bucket."""
+    from spark_rapids_jni_tpu_torch import Column, Table
+    from spark_rapids_jni_tpu_torch.parallel import exchange
+    from spark_rapids_jni_tpu_torch.parallel import shuffle as S
+    from spark_rapids_jni_tpu_torch.parallel.mesh import shard_table
+
+    P = mesh.size
+    ms = {}
+    mark = [time.perf_counter()]
+
+    def step(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        ms[name] = ms.get(name, 0.0) + (now - mark[0]) * 1e3
+        mark[0] = now
+
+    torch.cuda.synchronize()
+    mark[0] = time.perf_counter()
+    st = shard_table(li, mesh)
+    arrays, slots, cap, trunc, wc = S._plan_exchange(st, capacity, None, None)
+    step("plan")
+    pids = S._hash_pids(st, [0], arrays, slots, P)
+    step("hash")
+    packed, counts = [], []
+    for s in range(P):
+        pk, cnt = S._pack_buckets(arrays[s], pids[s], P, cap)
+        packed.append(pk)
+        counts.append(cnt)
+    step("pack")
+    recv = [exchange.all_to_all(mesh, [packed[s][k] for s in range(P)])
+            for k in range(len(packed[0]))]
+    rc = exchange.all_to_all(mesh, [c.reshape(P, 1) for c in counts])
+    step("move")
+    slot = torch.arange(cap, device=li.columns[0].device)
+    shards = []
+    for j in range(P):
+        occ = (slot[None, :] < torch.clamp(rc[j].reshape(P), max=cap)[:, None]).reshape(-1)
+        shards.append((Table([Column(c.dtype, r[j].reshape(-1, *r[j].shape[2:]))
+                              for c, r in zip(li.columns, recv)]), occ))
+    step("unpack")
+    nbytes = sum(int(p.numel()) * p.element_size() for pk in packed for p in pk)
+    return ms, nbytes
+
+
+def q5_exchange_sf10(counters, card, ctx):
+    """Phase 26: TPC-H q5 at SF10 over the exchange: phase 9's tables on
+    a mesh of 8 shards on the card, the build once, then every 4 Mi
+    lineitem batch through ``q5_exchange_batch`` under one resource task
+    scope with the capacity-feedback memo on; every batch and the final
+    rows exact against the host oracle. Prints rows/s beside phase 9's
+    one-card eager rung 3, the exchange's per-step ms and bytes, padding
+    waste and re-plans, torch ops per batch, the idle share, peak
+    memory, murmur3 launches per batch and the kernel at this shape."""
+    from spark_rapids_jni_tpu_torch.kernels import murmur3
+    from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
+    from spark_rapids_jni_tpu_torch.runtime import resource
+
+    t, d = ctx["tables"], ctx["data"]
+    mesh = card_mesh()
+    lis = t["lineitem"]
+    n_li = sum(x.num_rows for x in lis)
+    pl.set_capacity_feedback(True)
+    resource.exec_feedback_clear()
+    try:
+        with resource.task() as task:
+            build, build_live = q5_exchange_build(t, mesh, resource)
+            q5_exchange_batch(lis[0], build, build_live, t["supplier"], mesh, resource)
+            torch.cuda.synchronize()
+            warm_retries = task.metrics.retries
+            for name in counters:
+                counters[name].launches = 0
+            stage_ms = {}
+            last = [time.perf_counter()]
+
+            def tick(stage):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                stage_ms.setdefault(stage, []).append((now - last[0]) * 1e3)
+                last[0] = now
+
+            torch.cuda.reset_peak_memory_stats()
+            start = last[0]
+            build, build_live = q5_exchange_build(t, mesh, resource)
+            tick("build")
+            parts, waste = [], {"join_orders": [0, 0], "join_supplier": [0, 0]}
+            for i, li in enumerate(lis):
+                out, joins, over = q5_exchange_batch(li, build, build_live, t["supplier"],
+                                                     mesh, resource, tick)
+                if bool(over):
+                    raise AssertionError(f"q5 exchange batch {i}: a revenue product overflowed")
+                parts.append(out)
+                for k, (_j, occ) in joins.items():
+                    waste[k][0] += sum(int(o.numel()) for o in occ)
+                    waste[k][1] += sum(int(o.sum()) for o in occ)
+            final = q5_merge(parts, tick)
+            total_s = last[0] - start
+            launches = {name: c.launches for name, c in counters.items()}
+            retries = task.metrics.retries - warm_retries
+            peak = torch.cuda.max_memory_allocated()
+            for i, p in enumerate(parts):
+                want = sorted(q5_oracle(d, i * Q5_BATCH, (i + 1) * Q5_BATCH).items())
+                if sorted(q5_rows(p)) != want:
+                    raise AssertionError(f"q5 exchange batch {i}: differs from the host oracle")
+            want_final = q5_final_rows(q5_oracle(d))
+            if q5_rows(final) != want_final:
+                raise AssertionError(f"q5 exchange final differs: {q5_rows(final)}")
+            if launches["murmur3_chain"] < len(lis):
+                raise AssertionError(f"q5 exchange: murmur3 launches {launches}")
+            memo = resource.exec_feedback_table()
+            progs = resource.program_cache_table()
+            li0 = lis[0]
+            counts = op_counts(lambda tk: (q5_exchange_batch(
+                li0, build, build_live, t["supplier"], mesh, resource), tk("batch")))
+            profile_stage("q5 exchange batch (4 Mi rows, 8 shards)", lambda: q5_exchange_batch(
+                li0, build, build_live, t["supplier"], mesh, resource), top=8)
+    finally:
+        pl.set_capacity_feedback(None)
+    med = {s: float(np.median(v)) for s, v in stage_ms.items()}
+    brk, nbytes = exchange_breakdown(li0, mesh, Q5_JOIN_CAPACITIES["join_orders"][0])
+    brk = {k: round(v, 3) for k, v in brk.items()}
+    # the kernel at the exchange's shape: l_orderkey's two int32 word planes
+    from spark_rapids_jni_tpu_torch import Table
+
+    w, v, plan = murmur3.table_plan(Table([li0.columns[0]]))
+    k_ms = time_ms(lambda: murmur3.hash_planes(w, v, plan, 42), 50)
+    p_ms = time_ms(lambda: murmur3.hash_planes_plain(w, v, plan, 42), 10)
+    k_bytes = 4 * w.numel() + v.numel() + 4 * w.shape[1]
+    k_ops = w.shape[1] * (11 * w.shape[0] + 10 * len(plan))
+    k_bound = max(k_bytes / HBM_BYTES_PER_S, k_ops / INT_OPS_PER_S) * 1e3
+    eager = ctx["rows_per_s"]
+    print(f"q5 exchange sf10: {len(parts)} batches over {N_SHARDS} shards on one card and the "
+          f"final rows exact against the host oracle; lineitem rows/s {n_li / total_s:.4g} "
+          f"({n_li} rows in {total_s * 1e3:.1f} ms, build to final sort) against phase 9's "
+          f"one-card eager rung 3 {eager:.4g} in this call", flush=True)
+    print(f"q5 exchange per-stage ms (build and merge+sort once, the rest median over "
+          f"batches): {json.dumps(med)}")
+    print(f"q5 exchange of one batch on l_orderkey (capacity "
+          f"{Q5_JOIN_CAPACITIES['join_orders'][0]}), ms per step: {json.dumps(brk)}; send "
+          f"bucket bytes {nbytes}")
+    print(f"q5 exchange padding: granted slots vs live rows "
+          f"{json.dumps({k: {'granted': g, 'live': lv, 'waste': round(1 - lv / g, 4)} for k, (g, lv) in waste.items()})}; "
+          f"re-plans in the timed run {retries} (warm-up {warm_retries}); "
+          f"memo rows {json.dumps(memo)}; program-cache rows {json.dumps(progs)}")
+    print(f"q5 exchange torch ops per batch {counts['batch']}; peak device memory {peak} bytes; "
+          f"murmur3 launches {json.dumps(launches)} ({launches['murmur3_chain'] / len(lis):.2f} "
+          f"per batch); kernel at the l_orderkey exchange shape ({w.shape[1]} rows, "
+          f"{k_bytes} bytes): {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {k_bound:.4f} ms; "
+          f"card: {card}", flush=True)
+    return launches, {"ms": k_ms, "plain_ms": p_ms, "bound_ms": k_bound, "bytes": k_bytes,
+                      "build": build, "build_live": build_live}
+
+
+def mesh_executors_phase(counters, card, q1_ctx, q5_ctx):
+    """Phase 27: the mesh executors over 8 shards on the card under the
+    retry runtime: group_by over phase 21's q1 batches from an undersized
+    capacity (the first batch re-plans, the memo starts the rest wide
+    enough), join and shuffle with undersized capacities, a forced retry
+    (RmmSpark.forceRetryOOM) and a faultinj ``retry_oom`` rule, every
+    result exact against the one-card eager op; then RetryOOMError past
+    a byte budget. Prints the memo and program-cache rows."""
+    from spark_rapids_jni_tpu_torch import Table
+    from spark_rapids_jni_tpu_torch.api import Aggregation, Join, RetryOOMError, RmmSpark
+    from spark_rapids_jni_tpu_torch.columnar.interop import table_to_numpy
+    from spark_rapids_jni_tpu_torch.ops.sort import SortKey, sort_table
+    from spark_rapids_jni_tpu_torch.parallel import spark_hash
+    from spark_rapids_jni_tpu_torch.parallel.distributed import collect_table
+    from spark_rapids_jni_tpu_torch.runtime import faultinj, resource
+    from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
+
+    mesh = card_mesh()
+    Agg = Aggregation.Agg
+    aggs = [Agg("sum", 2), Agg("sum", 3), Agg("count")]
+    tables = [Table(tb.columns[:4]) for tb in q1_ctx["tables"]]
+    want_gb = [sorted(q5_rows_all(Aggregation.groupBy(tb, [0, 1], aggs))) for tb in tables]
+    li, sup = q5_ctx["lineitem0"], q5_ctx["supplier"]
+
+    def sorted_rows(tb):
+        keys = [SortKey(i) for i in range(tb.num_columns)]
+        return [x["data"].tobytes() for x in table_to_numpy(sort_table(tb, keys))]
+
+    want_join = sorted_rows(Join.join(li, sup, [1], [0]))
+    # undersized on purpose: the exchange buckets at 3/4 and 1/2 of the
+    # balanced share, the join output at 1/8 of the rows a shard gets
+    bucket = li.num_rows // mesh.size // mesh.size
+
+    def run_all(label):
+        for i, tb in enumerate(tables):
+            got = resource.group_by(tb, [0, 1], aggs, mesh, capacity=2,
+                                    string_widths={0: 8, 1: 8})
+            if sorted(q5_rows_all(got)) != want_gb[i]:
+                raise AssertionError(f"mesh executors [{label}] group_by batch {i} differs")
+        got = resource.join(li, sup, [1], [0], mesh, shuffle_capacity=3 * bucket // 4,
+                            out_capacity=li.num_rows // mesh.size // 8)
+        if sorted_rows(got) != want_join:
+            raise AssertionError(f"mesh executors [{label}] join differs")
+        out, occ = resource.shuffle(li, [1], mesh, capacity=bucket // 2)
+        for s, (part, o) in enumerate(zip(out.shards, occ)):
+            pids = spark_hash.partition_ids(Table([part.columns[1]]), mesh.size)
+            if bool((o & (pids != s)).any()):
+                raise AssertionError(f"mesh executors [{label}] shuffle: a row on shard {s} "
+                                     "hashes elsewhere")
+        if sorted_rows(collect_table(out, occ)) != sorted_rows(li):
+            raise AssertionError(f"mesh executors [{label}] shuffle lost or changed rows")
+
+    for name in counters:
+        counters[name].launches = 0
+    res = {}
+    pl.set_capacity_feedback(True)
+    resource.exec_feedback_clear()
+    try:
+        with resource.task() as task:
+            run_all("re-plan")
+            res["re-plan"] = {"retries": task.metrics.retries,
+                              "final_plans": {k: v for k, v in task.metrics.final_plans.items()
+                                              if k in ("group_by", "join", "shuffle")}}
+        memo = resource.exec_feedback_table()
+        progs = resource.program_cache_table()
+        with RmmSpark.task(max_retries=3) as task:
+            RmmSpark.forceRetryOOM(task.task_id, num_ooms=1, skip_count=2)
+            run_all("forced OOM")
+            res["forced"] = (task.metrics.retries, task.metrics.injected_ooms)
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        cfg = os.path.join(ROOT, "build", "chip_smoke_mesh_faults.json")
+        with open(cfg, "w") as f:
+            json.dump({"opFaults": {"Resource.join": {
+                "injectionType": "retry_oom", "interceptionCount": 2}}}, f)
+        os.environ["FAULT_INJECTOR_CONFIG_PATH"] = cfg
+        faultinj.reset()
+        try:
+            with resource.task() as task:
+                run_all("faultinj")
+                res["faultinj"] = task.metrics.injected_ooms
+        finally:
+            del os.environ["FAULT_INJECTOR_CONFIG_PATH"]
+            faultinj.reset()
+            os.remove(cfg)
+        resource.exec_feedback_clear()  # a cold plan, so the capacity must re-plan
+        try:
+            with resource.task(budget=4096):
+                resource.group_by(tables[0], [0, 1], aggs, mesh, capacity=2,
+                                  string_widths={0: 8, 1: 8})
+        except RetryOOMError as e:
+            res["budget"] = f"RetryOOMError after {e.metrics.retries} retries"
+        else:
+            raise AssertionError("no RetryOOMError past the byte budget")
+    finally:
+        pl.set_capacity_feedback(None)
+    if res["forced"][1] != 1 or res["faultinj"] != 2 or res["re-plan"]["retries"] < 3:
+        raise AssertionError(f"mesh executors: {json.dumps(res)}")
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    print(f"mesh executors over {N_SHARDS} shards: {json.dumps(res)}; every result exact; "
+          f"memo rows {json.dumps(memo)}; program-cache rows {json.dumps(progs)}; kernel "
+          f"launches {json.dumps(launches)}; card: {card}", flush=True)
+    return launches
+
+
+def q5_rows_all(out):
+    """Every row of a result table as a tuple of Python values."""
+    return [tuple(r) for r in zip(*out.to_pylists())]
+
+
+def sharded_stream_phase(counters, card, q1_ctx, q5_ctx):
+    """Phase 28: phase 21's q1 chain over phase 21's first four batches
+    and phase 22's q5 join chain over four lineitem batches through
+    ``Pipeline.stream(window=2, shard=<8-shard Mesh on the card>)``, each
+    against the unsharded stream of the same chain in the same call, the
+    q5 chain under both build placements (broadcast, co-partitioned);
+    results value-identical (groups compared sorted) and the q1 batches
+    exact against the host oracle. Rows/s, ops per chunk, plan misses
+    and hits; one sharded dispatch (a graph replay) under sync debug
+    mode "error"."""
+    from spark_rapids_jni_tpu_torch.api import Aggregation, Pipeline
+    from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
+    from spark_rapids_jni_tpu_torch.runtime import resource
+
+    mesh = card_mesh()
+    q1_tables, q1_want = q1_ctx["tables"], q1_ctx["want"]
+    lis = q5_ctx["tables"]["lineitem"][:4]
+    build, supplier = q5_ctx["build"], q5_ctx["tables"]["supplier"]
+
+    def q5_pipe(name, bcast):
+        return (Pipeline(name)
+                .join(build, [0], [0], "inner", right_string_widths={2: 16}, broadcast=bcast)
+                .join(supplier, [1, 5], [0, 1], "inner", left_string_widths={6: 16},
+                      broadcast=bcast)
+                .map(q5_revenue, name="q5_revenue")
+                .group_by([6], [Aggregation.Agg("sum", 9)], capacity=32,
+                          string_widths={6: 16}))
+
+    chains = [("q1", q1_pipeline("q1_sharded"), q1_tables),
+              ("q5 broadcast", q5_pipe("q5_sharded_bcast", True), lis),
+              ("q5 co-partitioned", q5_pipe("q5_sharded_copart", False), lis)]
+    for name in counters:
+        counters[name].launches = 0
+    report = {}
+    pl.set_capacity_feedback(True)
+    try:
+        with resource.task():
+            for label, pipe, tables in chains:
+                report[label] = stream_turns(label, pipe, tables, mesh, q1_want)
+            sharded_sync_free(chains[2][1], lis[0], mesh)
+    finally:
+        pl.set_capacity_feedback(None)
+    launches = {name: c.launches for name, c in counters.items()}
+    print(f"sharded stream over {N_SHARDS} shards (stream window=2, in turns with the "
+          f"unsharded stream): every chunk value-identical; {json.dumps(report)}; kernel "
+          f"launches {json.dumps(launches)}; card: {card}", flush=True)
+    profile_stage("q5 co-partitioned sharded stream chunk",
+                  lambda: chains[2][1].stream([lis[0]], shard=mesh), top=6)
+    return launches
+
+
+def stream_turns(label, pipe, tables, mesh, q1_want):
+    """The chain's sharded and unsharded streams in turns (sharded,
+    unsharded, unsharded, sharded): every chunk value-identical (q1 also
+    against the oracle); rows/s, plan misses and hits, ops per chunk."""
+    rows = sum(tb.num_rows for tb in tables)
+    stats, outs = {}, {}
+    for kind in ("sharded", "unsharded", "unsharded", "sharded"):
+        shard = mesh if kind == "sharded" else None
+        torch.cuda.synchronize()
+        m0, h0 = plan_counts()
+        t0 = time.perf_counter()
+        outs[kind] = pipe.stream(tables, window=2, shard=shard)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        m1, h1 = plan_counts()
+        stats.setdefault(kind, []).append({"rows_s": rows / s, "misses": m1 - m0,
+                                           "hits": h1 - h0})
+    for i, (a, b) in enumerate(zip(outs["unsharded"], outs["sharded"])):
+        if sorted(q5_rows_all(a)) != sorted(q5_rows_all(b)):
+            raise AssertionError(f"sharded stream [{label}] chunk {i} differs from the "
+                                 "unsharded stream")
+        if label == "q1" and sorted(q1_rows(b)) != q1_want[i]:
+            raise AssertionError(f"sharded stream [q1] chunk {i} differs from the oracle")
+    t0 = tables[0]
+    ops = {"sharded": op_counts(lambda tk: (pipe.stream([t0], shard=mesh), tk("c")))["c"],
+           "unsharded": op_counts(lambda tk: (pipe.stream([t0]), tk("c")))["c"]}
+    return {"rows_s": {k: [round(x["rows_s"]) for x in v] for k, v in stats.items()},
+            "plan_misses_hits": {k: [(x["misses"], x["hits"]) for x in v]
+                                 for k, v in stats.items()},
+            "ops_per_chunk": ops}
+
+
+def sharded_stream_dispatch(pipe, table, mesh):
+    """(dispatch, sync, plan) of one sharded chunk at the stream's plan."""
+    spec = pipe._resolve_shard(mesh)
+    bch = pipe._bcast_choices(spec)
+    plan = pipe._initial_plan(table.num_rows, None, shard_n=spec.n_dev, bcast=bch)
+    dispatch, sync, _holder = pipe._dispatch_fns(table, False, shard=spec)
+    return dispatch, sync, plan
+
+
+def sharded_sync_free(pipe, table, mesh):
+    """One sharded chunk's dispatch (its cached graph replayed) under
+    CUDA's sync debug mode "error": a host sync raises."""
+    dispatch, sync, plan = sharded_stream_dispatch(pipe, table, mesh)
+    sync(dispatch(plan))  # builds the plan outside the check
+    dispatch, sync, plan = sharded_stream_dispatch(pipe, table, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        value = dispatch(plan)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if any(sync(value).values()):
+        raise AssertionError("sharded stream: overflow in the sync-free check")
+    print("sharded stream: one sharded dispatch ran under sync debug mode 'error' with no host "
+          "sync", flush=True)
+
+
 def main() -> int:
     phase_t = [time.perf_counter()]
 
@@ -3677,7 +4313,6 @@ def main() -> int:
 
         # ---- 22. one q5 lineitem batch through the Pipeline, counted
         launches["q5_pipeline"] = q5_pipeline_phase(counters, card, q5_ctx)["murmur3_chain"]
-        del q5_ctx
         phase_done("22 q5 pipeline")
 
         # ---- 23. store_sales SF10 through Pipeline.scan_parquet, counted
@@ -3687,16 +4322,36 @@ def main() -> int:
 
         # ---- 24. the retry runtime on the card, counted
         launches["retry"] = retry_phase(counters, card, q1_ctx)["murmur3_chain"]
-        del q1_ctx
         phase_done("24 retry")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- 25. the exchange over 8 shards, card against CPU, exact
+    exchange_card_vs_cpu(N_MIXED, card)
+    phase_done("25 exchange card vs cpu")
+
+    # ---- 26. q5 at SF10 over the exchange, counted
+    q5x_launches, exchange_shape = q5_exchange_sf10(counters, card, q5_ctx)
+    launches["q5_exchange"] = q5x_launches["murmur3_chain"]
+    phase_done("26 q5 exchange sf10")
+
+    # ---- 27. the mesh executors under the retry runtime, counted
+    launches["mesh_executors"] = mesh_executors_phase(
+        counters, card, q1_ctx, q5_ctx)["murmur3_chain"]
+    phase_done("27 mesh executors")
+
+    # ---- 28. the sharded stream against the unsharded one, counted
+    launches["sharded_stream"] = sharded_stream_phase(
+        counters, card, q1_ctx, q5_ctx)["murmur3_chain"]
+    del q1_ctx, q5_ctx
+    phase_done("28 sharded stream")
+
+    on_exchange = ("rung 1", "q5_exchange", "mesh_executors", "sharded_stream")
     for path, count in launches.items():
-        if (count >= 1) != (path == "rung 1"):
+        if (count >= 1) != (path in on_exchange):
             raise AssertionError(f"murmur3 launches on the {path} path: {count}")
 
-    # ---- 25. kernel numbers, card, verdict
+    # ---- 29. kernel numbers, card, verdict
     k = timings["keys"]
     print(json.dumps({"kernels": [{
         "name": "murmur3_chain",
@@ -3705,6 +4360,7 @@ def main() -> int:
         "replaces": "spark_rapids_jni_tpu/kernels/murmur3.py:101",
         "launches": main_launches,
         "launches_by_path": launches,
+        "exchange_shape": {k: exchange_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bytes")},
         "max_abs_err": max_err,
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

@@ -38,6 +38,10 @@ Layer map of the ported slices:
                                     event journal, causal spans
   ops/row_conversion_host         host JCUDF codec over native/jcudf_rows.cpp
   parallel/spark_hash             Spark HashPartitioning placement
+  parallel/mesh, exchange,        the device mesh, the exchange (all_to_all,
+    shuffle, distributed            psum), hash_shuffle, distributed
+                                    group-by / join / sort, sharded collects;
+                                    runtime/resource mesh executors
   kernels/murmur3 + csrc/         the hand-written Hopper Murmur3 kernel
   columnar/                       DType, Column, Table, strings, interop
 """

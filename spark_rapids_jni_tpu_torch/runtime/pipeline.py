@@ -49,10 +49,17 @@ computes last; dispatch starts its copy to page-locked memory and
 records an event, and the deferred sync waits on that event alone, so
 retiring chunk i never waits for chunk i+1's queued work.
 
-Not ported yet: ``shard=`` (the sharded stream waits for the exchange,
-ROADMAP Queue 1 item 3). ``donate=True`` is accepted with the JAX
-package's checks, but torch has no buffer donation: it promises only
-that the pipeline drops its own references to the chunk.
+``stream(shard=...)`` splits every chunk over a device mesh inside its
+one program: the chunk pads to a mesh multiple (dead rows masked by the
+live mask) and is cut into P row blocks, row-local stages run per
+shard, ``group_by`` lowers to the two-phase distributed aggregate and
+``join`` to a broadcast or co-partitioned distributed join (the
+exchange of ``parallel/shuffle.py``), and the result gathers back onto
+the first mesh device before the tail vector. When every shard shares
+one card the sharded chain is one CUDA graph like any other; over
+several cards it runs eagerly. ``donate=True`` is accepted with the
+JAX package's checks, but torch has no buffer donation: it promises
+only that the pipeline drops its own references to the chunk.
 """
 
 from __future__ import annotations
@@ -181,6 +188,7 @@ def render_plan_rows(rows: "List[dict]") -> str:
             f"plan {r['sig']} pipeline={r['pipeline']} "
             f"hits={r['hits']} build={r['build_wall_ms']}ms "
             f"donate={int(bool(r.get('donate')))} form={r.get('form')}"
+            + ("" if r.get("shard") is None else f" shard={r['shard']!r}")
         )
         stages = r.get("stages") or []
         if stages:
@@ -211,6 +219,11 @@ def render_explain(doc: dict) -> str:
         out.append("plan points:")
         for k in sorted(plan):
             out.append(f"  {k} = {plan[k]}")
+    shard = doc.get("shard")
+    if shard:
+        out.append(f"shard: axis={shard['axis']} devices={shard['devices']}")
+        for i, choice in sorted(shard.get("broadcast", {}).items()):
+            out.append(f"  join stage {i}: {choice}")
     out.extend(_render_feedback(doc.get("feedback"), indent=""))
     scan = doc.get("scan")
     if scan:
@@ -379,9 +392,13 @@ def _record_feedback(sig: str, name: str, plan: dict, stats: dict) -> None:
     into the side table, count bucket transitions, and publish the
     waste gauge. ``plan`` is the knob set the FINAL (overflow-free)
     attempt ran with; ``stats`` the observed needs synced with the
-    overflow counts."""
-    stats = {k: int(v) for k, v in stats.items() if k in plan}
-    if not stats:
+    overflow counts. Wire-pin knobs (``{i}.wire``, the sharded stream's
+    droppable phase-2 pins) have no observation: their FINAL plan value
+    is recorded, so a pin a re-plan dropped stays dropped for the chunks
+    behind it."""
+    wire = {k: v for k, v in plan.items() if k.endswith(".wire")}
+    stats = {k: int(v) for k, v in stats.items() if k in plan and not k.endswith(".wire")}
+    if not stats and not wire:
         return
     changes: Dict[str, tuple] = {}
     wastes = []
@@ -406,6 +423,8 @@ def _record_feedback(sig: str, name: str, plan: dict, stats: dict) -> None:
             _plan_feedback.pop(sig)
             _plan_feedback[sig] = fb
         occs = []
+        for k, v in wire.items():
+            fb["knobs"][k] = {"observed": None, "bucket": v}
         for k, obs in stats.items():
             granted = int(plan[k])
             bucket = _quantize_knob(k, obs)
@@ -460,12 +479,16 @@ def _flatten(obj):
     from ..columnar.column import Column
     from ..columnar.table import Table
 
+    from ..parallel.mesh import ShardedTable
+
     leaves: List[torch.Tensor] = []
 
     def enc(x):
         if isinstance(x, torch.Tensor):
             leaves.append(x)
             return ("T",)
+        if isinstance(x, ShardedTable):
+            return ("Sharded", x.mesh, tuple(enc(t) for t in x.shards))
         if isinstance(x, Table):
             return ("Table", tuple(enc(c) for c in x.columns), x.names)
         if isinstance(x, Column):
@@ -484,12 +507,16 @@ def _unflatten(spec, leaves: Sequence[torch.Tensor]):
     from ..columnar.column import Column
     from ..columnar.table import Table
 
+    from ..parallel.mesh import ShardedTable
+
     it = iter(leaves)
 
     def dec(s):
         tag = s[0]
         if tag == "T":
             return next(it)
+        if tag == "Sharded":
+            return ShardedTable([dec(t) for t in s[2]], s[1])
         if tag == "Table":
             return Table([dec(c) for c in s[1]], s[2])
         if tag == "Col":
@@ -530,26 +557,163 @@ class PipelineError(RuntimeError):
     pass
 
 
-def _stage_probe(st: "_State") -> torch.Tensor:
+# ---------------------------------------------------------------------
+# sharded streaming window: ``Pipeline.stream(shard=...)`` splits every
+# in-flight chunk over a mesh INSIDE the chunk's one program — row-local
+# stages run per shard, group_by lowers to the two-phase distributed
+# aggregate (its phase-2 exchange takes the stage's wire pins), join to
+# a broadcast or co-partitioned distributed join. Retirement stays one
+# batched transfer per chunk, with per-device occupancy accounting.
+
+
+class _ShardSpec:
+    """Resolved mesh context of a sharded stream: the axis name, the
+    shard count and the Mesh. ``key()`` is the plan-cache identity: a
+    chunk built for an 8-shard mesh never reuses a one-device program,
+    nor one built for other devices."""
+
+    __slots__ = ("axis", "n_dev", "mesh")
+
+    def __init__(self, axis: str, n_dev: int, mesh):
+        self.axis = axis
+        self.n_dev = n_dev
+        self.mesh = mesh
+
+    def key(self) -> tuple:
+        return ("shard", self.axis, self.n_dev, tuple(str(d) for d in self.mesh.devices))
+
+
+# stages a sharded window cannot lower, each with the reason the
+# validation error names
+# sprtcheck: guarded-by=frozen
+_SHARD_INCOMPATIBLE = {
+    "from_json": "returns nested pieces with no occupancy sidecar",
+    "to_rows": "emits JCUDF rows with no live-mask discipline",
+}
+
+# per-device byte budget under which a sharded join's build side
+# replicates (broadcast) instead of co-partitioning through the hash
+# exchange; a stage's explicit ``broadcast=`` always wins
+BCAST_BUDGET_ENV = "SPARK_JNI_TPU_BCAST_BUDGET"
+
+
+def broadcast_budget() -> int:
+    """Resolved per-device broadcast budget in bytes (default 4 MiB).
+    A malformed value raises."""
+    raw = os.environ.get(BCAST_BUDGET_ENV, "").strip()
+    if not raw:
+        return 1 << 22
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(f"{BCAST_BUDGET_ENV}={raw!r}: expected an int byte count")
+
+
+def _pad_rows_traced(table, m: int):
+    """Append ``m`` dead rows with no host sync (static ``m``): fixed
+    planes zero-extend, varlen columns gain zero-length rows (payload
+    untouched), validity extends False. The caller masks the padding
+    dead through the chain's live mask."""
+    from ..columnar.column import Column
+    from ..columnar.table import Table
+
+    cols = []
+    for c in table.columns:
+        v = c.validity
+        if v is not None:
+            v = torch.cat([v, torch.zeros((m,), dtype=v.dtype, device=v.device)])
+        if c.is_varlen:
+            offs = torch.cat([c.offsets, c.offsets[-1:].expand(m)])
+            cols.append(Column(c.dtype, c.data, v, offs))
+        else:
+            pad = torch.zeros((m,) + tuple(c.data.shape[1:]), dtype=c.data.dtype,
+                              device=c.data.device)
+            cols.append(Column(c.dtype, torch.cat([c.data, pad]), v))
+    return Table(cols, table.names)
+
+
+def _shard_constrain(table, live, shard: _ShardSpec):
+    """Cut the chunk (and its live mask) into the mesh's P row blocks,
+    block i on ``mesh.devices[i]`` (no host sync inside the chain)."""
+    from ..parallel.mesh import shard_table, shard_vector
+
+    st = shard_table(table, shard.mesh)
+    return st, None if live is None else shard_vector(live, shard.mesh, table.num_rows)
+
+
+def _shard_prologue(st: "_State", shard: _ShardSpec) -> "_State":
+    """Pad the chunk to a multiple of the mesh size (dead rows masked by
+    the live mask) and cut it into shards. The pad amount is a pure
+    function of the chunk's shape, so same-shape chunks share a plan."""
+    n = st.table.num_rows
+    pad = (-n) % shard.n_dev
+    if pad:
+        dev = _table_device(st.table)
+        st.table = _pad_rows_traced(st.table, pad)
+        keep = torch.arange(n + pad, device=dev) < n
+        st.live = keep if st.live is None else torch.cat([st.live, keep[n:]])
+    st.table, st.live = _shard_constrain(st.table, st.live, shard)
+    return st
+
+
+def _gather_state(st: "_State", shard: _ShardSpec) -> "_State":
+    """The sharded chain's epilogue: every shard's live row count joins
+    the stats (``shard.live.<d>``, the per-device occupancy the
+    retirement publishes), then the shards gather onto the first mesh
+    device."""
+    from ..parallel.mesh import ShardedTable
+
+    if not isinstance(st.table, ShardedTable):
+        return st
+    first = shard.mesh.devices[0]
+    for d, part in enumerate(st.table.shards):
+        if st.live is None:
+            cnt = torch.full((), part.num_rows, dtype=torch.int64, device=first)
+        else:
+            cnt = st.live[d].sum().to(first)
+        st.stats[f"shard.live.{d}"] = cnt
+    if st.live is not None:
+        st.live = torch.cat([v.to(first) for v in st.live])
+    st.table = st.table.gather()
+    return st
+
+
+def _stage_probe(st: "_State", shard: Optional[_ShardSpec] = None) -> torch.Tensor:
     """ANALYZE-mode per-stage observation, computed in the chain at the
     tail of a stage: int64 [2] (live rows after the stage, live varlen
-    bytes). No sync: the host reads it at the chunk's one transfer."""
-    n = st.table.num_rows
-    live = st.live
+    bytes), and under a sharded stream [2 + 2P]: the same per shard
+    (rows, then bytes) behind them, the mesh skew map's raw data. No
+    sync: the host reads it at the chunk's one transfer."""
+    from ..parallel.mesh import ShardedTable
+
+    sharded = isinstance(st.table, ShardedTable)
+    parts = st.table.shards if sharded else [st.table]
+    lives = (st.live if sharded else [st.live]) if st.live is not None else [None] * len(parts)
     dev = _table_device(st.table)
-    rows = live.sum().to(torch.int64) if live is not None else torch.tensor(n, device=dev)
-    nbytes = torch.zeros((), dtype=torch.int64, device=dev)
-    for c in st.table.columns:
-        if not getattr(c, "is_varlen", False) or len(c) != n or n == 0:
-            continue
-        lens = c.string_lengths().to(torch.int64)
-        if live is not None:
-            lens = torch.where(live, lens, 0)
-        nbytes = nbytes + lens.sum()
-    return torch.stack([rows.to(torch.int64), nbytes])
+    rows_d, bytes_d = [], []
+    for part, live in zip(parts, lives):
+        n = part.num_rows
+        rows = (live.sum().to(torch.int64) if live is not None
+                else torch.full((), n, dtype=torch.int64, device=dev))
+        nbytes = torch.zeros((), dtype=torch.int64, device=dev)
+        for c in part.columns:
+            if not getattr(c, "is_varlen", False) or len(c) != n or n == 0:
+                continue
+            lens = c.string_lengths().to(torch.int64)
+            if live is not None:
+                lens = torch.where(live, lens, 0)
+            nbytes = nbytes + lens.sum().to(dev)
+        rows_d.append(rows.to(dev))
+        bytes_d.append(nbytes)
+    head = [torch.stack(rows_d).sum(), torch.stack(bytes_d).sum()]
+    if shard is None or not sharded:
+        return torch.stack(head)
+    return torch.cat([torch.stack(head), torch.stack(rows_d), torch.stack(bytes_d)])
 
 
 def _table_device(table) -> torch.device:
+    if hasattr(table, "mesh"):
+        return table.mesh.devices[0]
     for c in table.columns:
         data = getattr(c, "data", None)
         if isinstance(data, torch.Tensor):
@@ -1263,7 +1427,9 @@ class Pipeline:
         (output rows, default left rows) re-plans on overflow under a
         task scope. Varlen columns on either side need pinned widths
         (col index -> bytes). ``broadcast`` only matters to a sharded
-        stream (not ported yet) and is ignored here."""
+        stream: True replicates the build side to every shard, False
+        co-partitions both sides through the hash exchange, None picks
+        broadcast when the build side fits ``broadcast_budget()``."""
 
         def _w(d):
             return None if not d else tuple(sorted((int(k), int(v)) for k, v in d.items()))
@@ -1293,7 +1459,9 @@ class Pipeline:
         count — never overflows); ``string_widths`` pins varlen key /
         min-max value widths (col index -> bytes). Dead (filtered) rows
         collapse into one discarded liveness group. ``wire_widths``
-        only matters to a sharded stream's exchange (not ported yet)."""
+        (col index -> bits) only matters to a sharded stream: it pins
+        integer key columns to a narrow dtype on the phase-2 exchange (a
+        value that does not round-trip re-plans the pins away)."""
         return self._add(
             "group_by",
             _p(keys=tuple(int(k) for k in keys),
@@ -1336,16 +1504,21 @@ class Pipeline:
         ``fmt="text"`` renders it."""
         if fmt not in ("text", "json"):
             raise ValueError(f"explain fmt={fmt!r}: expected 'text' or 'json'")
-        self._resolve_shard(shard)
-        sig = self.signature_hash()
-        fb_snap = _feedback_for(sig)
+        spec = self._resolve_shard(shard)
+        bchoices = self._bcast_choices(spec)
+        sig_str = self.signature()
+        sig = _sig_hash(sig_str)
+        fb_sig = _sig_hash(sig_str + self._shard_suffix(spec, bchoices))
+        fb_snap = _feedback_for(fb_sig)
         with _plan_lock:
-            fb = _plan_feedback.get(sig)
+            fb = _plan_feedback.get(fb_sig)
             feedback = None if fb is None else _feedback_row(fb)
-        plan = self._initial_plan(1, None)
+        plan = self._initial_plan(1, None, shard_n=1 if spec is None else spec.n_dev,
+                                  bcast=bchoices)
         for i, s in enumerate(self._steps):
             if s.kind in ("join", "group_by") and dict(s.params).get("capacity") is None:
-                plan[f"{i}.capacity"] = "chunk_rows"
+                plan[f"{i}.capacity"] = (
+                    "chunk_rows" if spec is None else f"chunk_rows/{spec.n_dev}")
         if fb_snap:
             for k, rec in fb_snap.items():
                 if k in plan:
@@ -1360,18 +1533,31 @@ class Pipeline:
                 for i, s in enumerate(self._steps)
             ],
             "plan": {k: _json_safe(v) for k, v in plan.items()},
-            "shard": None,
+            "shard": None if spec is None else {
+                "axis": spec.axis,
+                "devices": spec.n_dev,
+                "broadcast": {str(i): ("broadcast" if v else "co-partition")
+                              for i, v in sorted(bchoices.items())},
+            },
             "feedback": feedback,
             "plans": [r for r in plan_cache_table() if r["sig"] == sig],
         }
         return doc if fmt == "json" else render_explain(doc)
 
-    def _initial_plan(self, n_rows: int, feedback: Optional[dict] = None) -> dict:
+    def _initial_plan(self, n_rows: int, feedback: Optional[dict] = None, shard_n: int = 1,
+                      bcast: Optional[dict] = None) -> dict:
         """Static knobs per step index (the re-plannable sizes).
         ``feedback`` (the per-knob observation snapshot of this chain's
         signature) replaces each default with the observed geometric
         bucket: tightened when the bucket is below the default, WIDENED
-        past it only when the raw observation exceeded the default."""
+        past it only when the raw observation exceeded the default.
+        ``shard_n`` (a sharded stream's mesh size) makes the group_by and
+        join capacity defaults the per-shard share; ``bcast`` (the
+        resolved {join stage: 0|1} placements) rides the plan as a static
+        ``{i}.bcast`` knob that is never re-planned, and the group_by
+        wire pins become the droppable ``{i}.wire`` knob."""
+        per_dev = max(-(-max(n_rows, 1) // max(shard_n, 1)), 1)
+        default_cap = per_dev if shard_n > 1 else max(n_rows, 1)
         plan: dict = {}
         for i, s in enumerate(self._steps):
             kw = dict(s.params)
@@ -1385,20 +1571,29 @@ class Pipeline:
                 plan[f"{i}.maxp"] = int(kw["maxp"])
             elif s.kind == "join":
                 cap = kw["capacity"]
-                plan[f"{i}.capacity"] = int(cap if cap is not None else max(n_rows, 1))
+                plan[f"{i}.capacity"] = int(cap if cap is not None else default_cap)
                 for ci, w in (kw["left_string_widths"] or ()):
                     plan[f"{i}.lwidth.{ci}"] = int(w)
                 for ci, w in (kw["right_string_widths"] or ()):
                     plan[f"{i}.rwidth.{ci}"] = int(w)
+                if shard_n > 1:
+                    plan[f"{i}.bcast"] = int((bcast or {}).get(i, 0))
             elif s.kind == "group_by":
                 cap = kw["capacity"]
-                plan[f"{i}.capacity"] = int(cap if cap is not None else max(n_rows, 1))
+                plan[f"{i}.capacity"] = int(cap if cap is not None else default_cap)
                 for ci, w in (kw["string_widths"] or ()):
                     plan[f"{i}.width.{ci}"] = int(w)
+                if shard_n > 1:
+                    plan[f"{i}.wire"] = kw["wire_widths"]
         if feedback:
             for k, default in plan.items():
                 rec = feedback.get(k)
                 if rec is None:
+                    continue
+                if k.endswith(".wire"):
+                    if rec["bucket"] is None:
+                        # a re-plan dropped these pins: they stay dropped
+                        plan[k] = None
                     continue
                 if rec["observed"] > default:
                     plan[k] = rec["bucket"]  # widen: default would overflow
@@ -1408,15 +1603,52 @@ class Pipeline:
 
     # -- the chain -----------------------------------------------------
 
-    def _apply_step(self, i: int, step: _Step, st: _State, plan: dict):
+    def _apply_per_shard(self, i: int, step: _Step, st: _State, plan: dict) -> _State:
+        """A row-local stage of a sharded chain: the stage on every shard,
+        its counts and stats folded by max over the shards (each is a
+        max over rows, so the fold equals the stage over the whole
+        chunk)."""
+        from ..parallel.mesh import ShardedTable
+
+        mesh = st.table.mesh
+        first = mesh.devices[0]
+        tables, lives, counts, stats = [], [], {}, {}
+        for s, part in enumerate(st.table.shards):
+            sub = _State(part, None if st.live is None else st.live[s], st.sides, {}, {})
+            sub = self._apply_step(i, step, sub, plan)
+            tables.append(sub.table)
+            lives.append(sub.live)
+            for src, dst in ((sub.counts, counts), (sub.stats, stats)):
+                for k, v in src.items():
+                    dst.setdefault(k, []).append(v.to(first))
+        for k, vs in counts.items():
+            m = torch.stack(vs).max(0).values
+            st.counts[k] = st.counts[k] + m if k in st.counts else m
+        for k, vs in stats.items():
+            m = torch.stack(vs).max(0).values
+            st.stats[k] = torch.maximum(st.stats[k], m) if k in st.stats else m
+        if any(v is not None for v in lives):
+            lives = [torch.ones(t.num_rows, dtype=torch.bool, device=d) if v is None else v
+                     for v, t, d in zip(lives, tables, mesh.devices)]
+        else:
+            lives = None
+        st.table, st.live = ShardedTable(tables, mesh), lives
+        return st
+
+    def _apply_step(self, i: int, step: _Step, st: _State, plan: dict,
+                    shard: Optional[_ShardSpec] = None):
         from ..columnar.column import Column
         from ..columnar.dtypes import INT64
         from ..columnar.table import Table
+        from ..parallel.mesh import ShardedTable
 
         kw = dict(step.params)
         kind = step.kind
         if st.nested is not None:
             raise PipelineError("from_json is a terminal stage: no stage may follow it")
+        sharded = shard is not None and isinstance(st.table, ShardedTable)
+        if sharded and kind not in ("join", "group_by"):
+            return self._apply_per_shard(i, step, st, plan)
 
         def place(col_obj, src: int):
             cols = list(st.table.columns)
@@ -1428,13 +1660,30 @@ class Pipeline:
                 cols[src] = col_obj  # in-place: schema names survive
             st.table = Table(cols, names)
 
-        def note_width_overflow(col, width: int, key: str = None):
-            if len(col) == 0:
+        def live_max_len(cols, lives):
+            """int32 max live byte length over column parts (None when
+            every part is empty)."""
+            maxes = []
+            for c, live in zip(cols, lives):
+                if len(c) == 0:
+                    continue
+                lens = c.string_lengths()
+                if live is not None:
+                    lens = torch.where(live, lens, 0)
+                maxes.append(lens.max().to(torch.int32).to(cols[0].device))
+            return torch.stack(maxes).max() if maxes else None
+
+        def parts_of(tbl, live, ci):
+            if isinstance(tbl, ShardedTable):
+                lives = live if live is not None else [None] * len(tbl.shards)
+                return [p.columns[ci] for p in tbl.shards], lives
+            return [tbl.columns[ci]], [live]
+
+        def note_width_overflow(col, width: int, key: str = None, parts=None):
+            cols, lives = parts if parts is not None else ([col], [st.live])
+            mx = live_max_len(cols, lives)
+            if mx is None:
                 return
-            lens = col.string_lengths()
-            if st.live is not None:
-                lens = torch.where(st.live, lens, 0)
-            mx = lens.max().to(torch.int32)
             over = torch.clamp(mx - width, min=0)
             key = key or f"{i}.width"
             st.counts[key] = st.counts[key] + over if key in st.counts else over
@@ -1538,7 +1787,8 @@ class Pipeline:
                 # width folds into the chain's counts/stats
                 ws = {}
                 pinned = dict(declared or ())
-                for ci, c in enumerate(tbl2.columns):
+                cols0 = tbl2.shards[0].columns if isinstance(tbl2, ShardedTable) else tbl2.columns
+                for ci, c in enumerate(cols0):
                     if not c.is_varlen:
                         continue
                     w = plan.get(f"{i}.{tag}.{ci}", pinned.get(ci))
@@ -1549,11 +1799,8 @@ class Pipeline:
                             "side needs a pinned width "
                             "(left/right_string_widths={col: bytes})"
                         )
-                    if len(c):
-                        lens = c.string_lengths()
-                        if live_mask is not None:
-                            lens = torch.where(live_mask, lens, 0)
-                        mx = lens.max().to(torch.int32)
+                    mx = live_max_len(*parts_of(tbl2, live_mask, ci))
+                    if mx is not None:
                         key = f"{i}.{tag}.{ci}"
                         over = torch.clamp(mx - w, min=0)
                         st.counts[key] = st.counts[key] + over if key in st.counts else over
@@ -1565,17 +1812,81 @@ class Pipeline:
 
             l_w = side_widths(st.table, kw["left_string_widths"], "lwidth", st.live)
             r_w = side_widths(right, kw["right_string_widths"], "rwidth", None)
-            l_mats = {ci: _strs.to_char_matrix(st.table.columns[ci], w)
-                      for ci, w in l_w.items()} or None
-            r_mats = {ci: _strs.to_char_matrix(right.columns[ci], w)
-                      for ci, w in r_w.items()} or None
-            res, occ, needed = join_padded(
-                st.table, right, list(kw["left_on"]), list(kw["right_on"]), cap, kw["how"],
-                left_occupied=st.live, with_stats=True, left_mats=l_mats, right_mats=r_mats,
+            if not sharded:
+                l_mats = {ci: _strs.to_char_matrix(st.table.columns[ci], w)
+                          for ci, w in l_w.items()} or None
+                r_mats = {ci: _strs.to_char_matrix(right.columns[ci], w)
+                          for ci, w in r_w.items()} or None
+                res, occ, needed = join_padded(
+                    st.table, right, list(kw["left_on"]), list(kw["right_on"]), cap, kw["how"],
+                    left_occupied=st.live, with_stats=True, left_mats=l_mats, right_mats=r_mats,
+                )
+                need = needed.max().to(torch.int32)
+                st.counts[f"{i}.capacity"] = torch.clamp(need - cap, min=0)
+                st.stats[f"{i}.capacity"] = need
+            else:
+                # ``capacity`` is the per-shard output grant; width
+                # truncations are already counted per column above (the
+                # exchange pins the same widths), so join_output is the
+                # one knob-mapped stage. Broadcast replicates the build
+                # side; co-partitioned exchanges both sides by key, the
+                # build side padded to a mesh multiple (dead rows masked)
+                from ..parallel import distributed as _dist
+
+                common = dict(how=kw["how"], axis=shard.axis, left_occupied=st.live,
+                              out_capacity=cap, left_string_widths=l_w or None,
+                              right_string_widths=r_w or None, overflow_detail=True,
+                              with_stats=True)
+                if plan.get(f"{i}.bcast"):
+                    res, occ, ovf, jstats = _dist.distributed_join_broadcast(
+                        st.table, right, list(kw["left_on"]), list(kw["right_on"]), shard.mesh,
+                        **common)
+                else:
+                    right2, r_occ = right, None
+                    padr = (-right.num_rows) % shard.n_dev
+                    if padr:
+                        right2 = _pad_rows_traced(right, padr)
+                        r_occ = torch.arange(right.num_rows + padr,
+                                             device=_table_device(right)) < right.num_rows
+                    res, occ, ovf, jstats = _dist.distributed_join(
+                        st.table, right2, list(kw["left_on"]), list(kw["right_on"]), shard.mesh,
+                        right_occupied=r_occ, **common)
+                st.counts[f"{i}.capacity"] = ovf["join_output"].to(torch.int32)
+                st.stats[f"{i}.capacity"] = jstats["out_needed_per_dev"].max().to(torch.int32)
+            st.table, st.live = res, occ
+        elif kind == "group_by" and sharded:
+            # the two-phase distributed aggregate: per-shard partials, a
+            # wire-pinned phase-2 exchange, per-shard merge. Capacity
+            # shortfalls (phase-1 groups, final merge) re-plan the
+            # per-shard grant; string truncations are counted per column
+            # here; an integer wire pin that does not round-trip shows
+            # only in the exchange stage and re-plans the droppable pins
+            from ..parallel import distributed as _dist
+
+            cap = plan[f"{i}.capacity"]
+            keys = list(kw["keys"])
+            aggs = list(kw["aggs"])
+            widths = {}
+            for ci in sorted({*keys, *(a.column for a in aggs if a.column is not None)}):
+                if st.table.shards[0].columns[ci].is_varlen:
+                    w = plan.get(f"{i}.width.{ci}")
+                    if w is None:
+                        raise PipelineError(
+                            f"group_by stage {i}: varlen column {ci} needs "
+                            "a pinned width (string_widths={col: bytes})"
+                        )
+                    note_width_overflow(None, w, key=f"{i}.width.{ci}",
+                                        parts=parts_of(st.table, st.live, ci))
+                    widths[ci] = int(w)
+            res, occ, ovf, gstats = _dist.distributed_group_by(
+                st.table, keys, aggs, shard.mesh, axis=shard.axis, capacity=cap,
+                occupied=st.live, string_widths=widths or None,
+                wire_widths=dict(plan[f"{i}.wire"] or ()) or None, overflow_detail=True,
+                with_stats=True,
             )
-            need = needed.max().to(torch.int32)
-            st.counts[f"{i}.capacity"] = torch.clamp(need - cap, min=0)
-            st.stats[f"{i}.capacity"] = need
+            st.counts[f"{i}.capacity"] = (ovf["local_groups"] + ovf["final_merge"]).to(torch.int32)
+            st.counts[f"{i}.wire"] = ovf["shuffle"].to(torch.int32)
+            st.stats[f"{i}.capacity"] = gstats["local_groups_per_dev"].max().to(torch.int32)
             st.table, st.live = res, occ
         elif kind == "group_by":
             from ..columnar import strings as _strs
@@ -1650,34 +1961,46 @@ class Pipeline:
             raise PipelineError(f"unknown stage kind {kind!r}")
         return st
 
-    def _chain_fn(self, plan: dict):
+    def _chain_fn(self, plan: dict, shard: Optional[_ShardSpec] = None):
         """(run_chain, where): the whole chain over ``(chunk, sides)``,
         ending in the tail vector; ``where["stage"]`` names the stage
-        running (for the capture error)."""
+        running (for the capture error). Under ``shard`` the chunk is cut
+        into shards first and gathered back before the tail."""
         where: dict = {}
 
         def run_chain(chunk, sides):
             st = _State(chunk, None, tuple(sides), {})
+            if shard is not None:
+                st = _shard_prologue(st, shard)
             for i, step in enumerate(self._steps):
                 where["stage"] = i
-                st = self._apply_step(i, step, st, plan)
+                st = self._apply_step(i, step, st, plan, shard)
             where["stage"] = None
+            if shard is not None:
+                st = _gather_state(st, shard)
             tail, layout = _tail_vector(st, _table_device(chunk))
             return st.table, st.live, st.nested, tail, layout
 
         return run_chain, where
 
-    def _stage_fn(self, stage: int, plan: dict):
+    def _stage_fn(self, stage: int, plan: dict, shard: Optional[_ShardSpec] = None):
         """ANALYZE-mode slice: ONE stage over the threaded ``(table,
         live, counts, stats, nested)`` state, returning the new state and
-        the stage probe."""
+        the stage probe. Under ``shard`` the first slice cuts the chunk
+        into shards and the last gathers them after its probe."""
         step = self._steps[stage]
+        last = len(self._steps) - 1
 
         def run_stage(state, sides):
             table, live, counts, stats, nested = state
             st = _State(table, live, tuple(sides), dict(counts), dict(stats), nested)
-            st = self._apply_step(stage, step, st, plan)
-            return (st.table, st.live, st.counts, st.stats, st.nested), _stage_probe(st)
+            if shard is not None and stage == 0:
+                st = _shard_prologue(st, shard)
+            st = self._apply_step(stage, step, st, plan, shard)
+            probe = _stage_probe(st, shard)
+            if shard is not None and stage == last:
+                st = _gather_state(st, shard)
+            return (st.table, st.live, st.counts, st.stats, st.nested), probe
 
         return run_stage
 
@@ -1688,7 +2011,7 @@ class Pipeline:
 
     def _get_executable(
         self, chunk, plan: dict, donate: bool, stage: Optional[int] = None,
-        sig_str: Optional[str] = None,
+        sig_str: Optional[str] = None, shard: Optional[_ShardSpec] = None,
     ):
         """Plan-cache lookup / build. ``stage=None`` is the whole-chain
         program over ``(chunk, sides)``; an int is the ANALYZE-mode slice
@@ -1699,10 +2022,13 @@ class Pipeline:
         if sig_str is None:
             sig_str = self.signature()
         dev = _table_device(chunk if stage is None else chunk[0])
-        # the card runs the whole chain as a CUDA graph; the CPU and the
-        # ANALYZE slices run it eagerly (the device is in the key)
-        form = "graph" if (dev.type == "cuda" and stage is None) else "eager"
-        key = (sig_str, plan_key, bool(donate), _avals_key((chunk, sides)))
+        # the card runs the whole chain as a CUDA graph; the CPU, the
+        # ANALYZE slices and a chain sharded over several cards run it
+        # eagerly (the device and the shard layout are in the key)
+        one_card = shard is None or shard.mesh.shared_device == dev
+        form = "graph" if (dev.type == "cuda" and stage is None and one_card) else "eager"
+        key = (sig_str, plan_key, bool(donate), _avals_key((chunk, sides)),
+               None if shard is None else shard.key())
         if stage is not None:
             key = key + (("stage", stage),)
         sig = _sig_hash(sig_str)
@@ -1730,12 +2056,12 @@ class Pipeline:
         t0 = time.perf_counter()
         with _spans.span("plan_build", f"Pipeline.{self.name}", plan=sig):
             if stage is not None:
-                exe = _EagerProgram(self._stage_fn(stage, plan))
+                exe = _EagerProgram(self._stage_fn(stage, plan, shard))
             elif form == "graph":
-                fn, where = self._chain_fn(plan)
+                fn, where = self._chain_fn(plan, shard)
                 exe = _GraphProgram(fn, where, self._stage_labels(), chunk, sides)
             else:
-                exe = _EagerProgram(self._chain_fn(plan)[0])
+                exe = _EagerProgram(self._chain_fn(plan, shard)[0])
         wall_ms = (time.perf_counter() - t0) * 1000
         _metrics.counter("pipeline.plan_cache_miss").inc()
         acct = _ctx_cache_account.get()
@@ -1761,7 +2087,7 @@ class Pipeline:
                 "plan": dict(plan_key),
                 "donate": bool(donate),
                 "form": form,
-                "shard": None,
+                "shard": None if shard is None else shard.key(),
                 "avals": str(key[3]),
                 "hits": 0,
                 "build_wall_ms": round(wall_ms, 3),
@@ -1802,6 +2128,11 @@ class Pipeline:
             cur = plan.get(k)
             if cur is None:
                 continue
+            if k.endswith(".wire"):
+                # a non-round-tripping wire pin cannot be grown usefully:
+                # full storage width always round-trips
+                new[k], grew = None, True
+                continue
             if "width" in k.split(".", 1)[1]:
                 from ..columnar.strings import bucket_length
 
@@ -1824,7 +2155,8 @@ class Pipeline:
                 "donation, or open the scope with retries_enabled=False"
             )
 
-    def _dispatch_fns(self, table, donate: bool, analyze: bool = False):
+    def _dispatch_fns(self, table, donate: bool, analyze: bool = False,
+                      shard: Optional[_ShardSpec] = None):
         """(dispatch, sync, holder) triple for one chunk — the two phases
         the deferred retry driver splits apart, plus the mailbox.
         ``dispatch`` looks up / builds the program and queues the chunk,
@@ -1852,7 +2184,8 @@ class Pipeline:
                 state = (src, None, {}, {}, None)
                 probes, marks = [], []
                 for i in range(len(self._steps)):
-                    exe = self._get_executable(state, plan, False, stage=i, sig_str=sig_str)
+                    exe = self._get_executable(state, plan, False, stage=i, sig_str=sig_str,
+                                               shard=shard)
                     state, probe = exe(state, sides)
                     probes.append(probe)
                     if dev.type == "cuda":
@@ -1882,10 +2215,14 @@ class Pipeline:
                     _spans.close_span(sp, stage=i, stage_kind=kind)
                     stage_spans.append(sp)
                 # the probes ride the chain's ONE transfer with the tail
-                values = torch.cat([value[3]] + [p.reshape(-1) for p in probes]).tolist()
+                dev0 = value[3].device
+                values = torch.cat([value[3]] + [p.reshape(-1).to(dev0) for p in probes]).tolist()
                 layout = value[4]
                 nt = value[3].shape[0]
-                hp = [values[nt + 2 * i: nt + 2 * i + 2] for i in range(len(probes))]
+                hp, at = [], nt
+                for p in probes:
+                    hp.append(values[at:at + p.numel()])
+                    at += p.numel()
                 counts = self._unpack(values[:nt], layout, holder)
                 self._emit_stage_metrics(hp, walls, stage_spans, holder)
                 return counts
@@ -1899,7 +2236,7 @@ class Pipeline:
         def dispatch(plan):
             holder["plan"] = dict(plan)
             src = holder["table"]
-            exe = self._get_executable(src, plan, donate)
+            exe = self._get_executable(src, plan, donate, shard=shard)
             if donate:
                 holder["table"] = None  # the pipeline keeps no reference
             table2, live, nested, tail, layout = exe(src, tuple(self._sides))
@@ -1943,10 +2280,22 @@ class Pipeline:
             }
             if chunk is not None:
                 attrs["chunk"] = chunk
+            skew = None
+            if len(p) > 2:
+                # under a sharded stream: per-shard rows, then bytes
+                n_dev = (len(p) - 2) // 2
+                dev_rows = [int(x) for x in p[2:2 + n_dev]]
+                attrs["device_rows"] = dev_rows
+                attrs["device_bytes"] = [int(x) for x in p[2 + n_dev:]]
+                mean = sum(dev_rows) / len(dev_rows)
+                skew = round(max(dev_rows) / mean, 3) if mean > 0 else 0.0
+                attrs["skew"] = skew
             _events.emit("stage_metrics", op=op_name, _span=stage_spans[i], **attrs)
             _metrics.counter(f"pipeline.stage.{kind}.rows").inc(rows)
             _metrics.counter(f"pipeline.stage.{kind}.bytes").inc(nbytes)
             _metrics.timer(f"pipeline.stage.{kind}.wall_ms").observe(w)
+            if skew is not None:
+                _metrics.gauge(f"pipeline.stage.{kind}.device_skew").set(skew)
             if sink is not None:
                 row = sink.setdefault(
                     f"{i}:{kind}", {"rows": 0, "bytes": 0, "wall_ms": 0.0, "chunks": 0}
@@ -1974,6 +2323,15 @@ class Pipeline:
         if not collect:
             return out_tbl, live
         sizes = holder.get("collect") or []
+        stats = holder.get("stats") or {}
+        per_dev = [stats[k] for k in sorted((k for k in stats if k.startswith("shard.live.")),
+                                            key=lambda k: int(k.rsplit(".", 1)[1]))]
+        if per_dev:
+            # a sharded chunk's retirement: per-device occupancy and
+            # key-skew gauges next to its one batched transfer
+            from ..parallel.distributed import _publish_device_metrics
+
+            _publish_device_metrics(per_dev, len(per_dev), None)
         with _spans.span("collect_stage", "collect_table"):
             if live is not None:
                 return _gather_live(out_tbl, live, sizes[0], sizes[1:])
@@ -2055,26 +2413,89 @@ class Pipeline:
 
     # -- streaming execution ------------------------------------------
 
-    def _resolve_shard(self, shard) -> None:
-        """``shard=None`` or a one-device request runs unsharded; any
-        mesh raises: the sharded stream waits for the exchange."""
+    def _resolve_shard(self, shard) -> Optional[_ShardSpec]:
+        """Validate and resolve ``shard``: an ``(axis_name, n_devices)``
+        pair over the first n CUDA devices (raising past the count), or
+        a ``parallel.mesh.Mesh`` (how P shards share one card). None or a
+        one-shard request runs unsharded."""
+        from ..parallel.mesh import Mesh, make_mesh
+
         if shard is None:
             return None
-        try:
-            axis, n = shard
-            n = int(n)
-        except (TypeError, ValueError):
-            raise ValueError(
-                f"shard={shard!r}: expected an (axis_name, n_devices) pair, e.g. ('devices', 8)"
-            )
-        if n < 1:
-            raise ValueError(f"shard device count must be >= 1, got {n}")
+        mesh = None
+        if isinstance(shard, Mesh):
+            mesh, axis, n = shard, shard.axis_names[0], shard.size
+        else:
+            try:
+                axis, n = shard
+                axis, n = str(axis), int(n)
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"shard={shard!r}: expected an (axis_name, n_devices) pair, e.g. "
+                    "('devices', 8), or a Mesh"
+                )
+            if n < 1:
+                raise ValueError(f"shard device count must be >= 1, got {n}")
         if n == 1:
             return None
-        raise PipelineError(
-            f"shard=({axis!r}, {n}): the sharded stream is not ported yet — it "
-            "waits for the exchange (ROADMAP Queue 1 item 3); run unsharded"
-        )
+        if mesh is None:
+            n_avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if n > n_avail:
+                raise ValueError(f"shard=({axis!r}, {n}): only {n_avail} device(s) available")
+        bad = sorted({s.kind for s in self._steps if s.kind in _SHARD_INCOMPATIBLE})
+        if bad:
+            detail = "; ".join(f"{k} {_SHARD_INCOMPATIBLE[k]}" for k in bad)
+            raise PipelineError(
+                f"sharded stream cannot lower stage(s) {bad}: {detail} — run those unsharded"
+            )
+        if mesh is None:
+            mesh = make_mesh(n, axis_names=(axis,))
+        return _ShardSpec(axis, n, mesh)
+
+    # sprtcheck: plan-key-fold — the budget's choices land in {i}.bcast
+    def _bcast_choices(self, spec: Optional[_ShardSpec]) -> dict:
+        """Each join stage's build-side placement under a sharded stream:
+        {stage index: 1 (broadcast) or 0 (co-partition)}. A stage's
+        explicit ``broadcast=`` wins (True is rejected for full/right
+        joins: unmatched build rows would emit once per shard); otherwise
+        broadcast when the build side fits ``broadcast_budget()`` and the
+        join kind allows it. The choices fold into the plan and the
+        feedback key, so the two lowerings never share a program or
+        observations."""
+        if spec is None:
+            return {}
+        choices: dict = {}
+        for i, s in enumerate(self._steps):
+            if s.kind != "join":
+                continue
+            kw = dict(s.params)
+            how = kw["how"]
+            forced = kw.get("broadcast")
+            if forced is not None:
+                if forced and how in ("full", "right"):
+                    raise PipelineError(
+                        f"join stage {i}: broadcast=True cannot run how={how!r} — unmatched "
+                        "rows of the replicated build side would emit once per device; "
+                        "co-partition (broadcast=False)"
+                    )
+                choices[i] = int(bool(forced))
+                continue
+            side = self._sides[kw["side"]]
+            fits = _resource._table_row_bytes(side, None) * side.num_rows <= broadcast_budget()
+            choices[i] = int(fits and how not in ("full", "right"))
+        return choices
+
+    @staticmethod
+    def _shard_suffix(spec: Optional[_ShardSpec], bchoices: dict) -> str:
+        """The feedback-key suffix of a sharded stream: per-shard
+        observations never warm-start the one-device plan (or another
+        mesh size's), a broadcast join's never the co-partitioned one's."""
+        if spec is None:
+            return ""
+        suffix = f"|shard:{spec.axis}:{spec.n_dev}"
+        if bchoices:
+            suffix += "|bcast:" + ",".join(f"{i}:{v}" for i, v in sorted(bchoices.items()))
+        return suffix
 
     def stream(
         self,
@@ -2097,6 +2518,17 @@ class Pipeline:
         synchronously — inputs stay referenced until their chunk
         retires. ``window=1`` is the serial loop.
 
+        ``shard=("devices", n)`` (the first n CUDA devices) or
+        ``shard=<parallel.mesh.Mesh>`` splits every chunk over the mesh
+        inside its one program (see the module docstring): group_by
+        lowers to the two-phase distributed aggregate (pin integer keys
+        with the stage's ``wire_widths``), join to a broadcast build
+        side when it fits the per-device budget (or the stage forces
+        ``broadcast=``) and a co-partitioned exchange otherwise, with the
+        per-shard capacities re-planned like every other knob. Results
+        are value-identical to the unsharded stream, with group and join
+        rows in hash-placement order. from_json / to_rows raise up front.
+
         Returns the per-chunk results in input order: collected compact
         Tables, or padded ``(table, live)`` pairs with
         ``collect=False``."""
@@ -2118,14 +2550,18 @@ class Pipeline:
                 "stage-sliced programs re-read the chunk's buffers "
                 "across slices"
             )
-        self._resolve_shard(shard)
+        spec = self._resolve_shard(shard)
+        bchoices = self._bcast_choices(spec)
         scope = _resource.current_task()
         op_name = f"Pipeline.{self.name}"
         op = f"pipeline.{self.name}"
         fb_on = capacity_feedback()
-        sig = _sig_hash(self.signature()) if fb_on else None
+        sig = _sig_hash(self.signature() + self._shard_suffix(spec, bchoices)) if fb_on else None
+        n_dev = 0 if spec is None else spec.n_dev
         _metrics.gauge("pipeline.stream_window").set(window)
-        _metrics.gauge("pipeline.shard_devices").set(0)
+        # 0 for an unsharded stream: the gauge never keeps reporting an
+        # earlier sharded stream's mesh size
+        _metrics.gauge("pipeline.shard_devices").set(n_dev)
         inflight: List[dict] = []
         results: List[Any] = []
 
@@ -2155,7 +2591,7 @@ class Pipeline:
                 wall_ms = (time.perf_counter() - e["t0"]) * 1000
                 _events.emit(
                     "stream_retire", op=op_name, chunk=e["index"], window=window,
-                    shard_devices=0, retries=e["deferred"].retries, wall_ms=round(wall_ms, 3),
+                    shard_devices=n_dev, retries=e["deferred"].retries, wall_ms=round(wall_ms, 3),
                 )
                 if _metrics.enabled():
                     rows_out, bytes_out = _metrics._rows_bytes(out if collect else out_tbl)
@@ -2183,8 +2619,10 @@ class Pipeline:
                     t0 = time.perf_counter()
                     rows_in, bytes_in = _metrics._rows_bytes(chunk)
                     plan0 = self._initial_plan(chunk.num_rows,
-                                               _feedback_for(sig) if fb_on else None)
-                    dispatch, sync, holder = self._dispatch_fns(chunk, donate, analyze=an)
+                                               _feedback_for(sig) if fb_on else None,
+                                               shard_n=max(n_dev, 1), bcast=bchoices)
+                    dispatch, sync, holder = self._dispatch_fns(chunk, donate, analyze=an,
+                                                                shard=spec)
                     holder["chunk"] = idx
                     n_est, row_b = self._estimate_basis(chunk)
                     sp = _spans.open_span("op", op_name)

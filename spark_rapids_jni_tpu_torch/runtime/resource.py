@@ -26,11 +26,13 @@ next to their results; this module closes the loop:
   (RmmSpark.forceRetryOOM) plus the faultinj config kind
   ``"retry_oom"`` (runtime/faultinj.py injectionType 3); per-task
   metrics (retries, final plans, bytes, wall time) are queryable from
-  Python (``metrics()``).
-
-The mesh executors of the JAX module (``group_by``, ``join``,
-``shuffle`` over a device mesh) wait for the exchange (ROADMAP Queue 1
-item 3).
+  Python (``metrics()``),
+- the mesh executors ``group_by``, ``join`` and ``shuffle`` run the
+  distributed operators (``parallel/distributed.py``,
+  ``parallel/shuffle.py``) over a device mesh the same way: this is how
+  a plugin sizes a bucket, by count-informed re-plans under the task's
+  budget, never by a wrong answer. Their feedback memo and program
+  cache key on the mesh shape.
 
 State machine per op invocation::
 
@@ -56,6 +58,7 @@ from . import faultinj
 from . import flight as _flight
 from . import metrics as _metrics
 from . import spans as _spans
+from ..ops._strategy import fusing
 from .errors import CapacityExceededError, RetryOOMError
 
 DEFAULT_MAX_RETRIES = 5
@@ -447,6 +450,12 @@ def reset() -> None:
 # driver — a warm tighten can never drop rows, only re-plan. Gated on
 # the shared capacity-feedback knob (``SPARK_JNI_TPU_CAPACITY_FEEDBACK``
 # / ``pipeline.set_capacity_feedback``) AND a retrying task scope.
+
+# distinct-key placement skew (max/mean of the per-shard merge need)
+# at which the group_by re-planner reaches for a salted re-shuffle
+# instead of growing merge slots
+EXEC_SKEW_THRESHOLD = 2.0
+MAX_SHUFFLE_SALT = 2  # salt re-rolls per invocation before growing
 
 _exec_feedback_lock = threading.Lock()
 # sprtcheck: guarded-by=_exec_feedback_lock
@@ -1407,4 +1416,590 @@ def join_padded(
     if holder.get("observed") is not None:
         obs["capacity"] = max(int(holder["observed"]), 1)
     _record_exec_feedback(memo_key, "join_padded", holder.get("plan"), obs)
+    return value
+
+
+# --------------------------------------------------------------------
+# mesh executors: the distributed group-by / join / shuffle under the
+# retry driver, with the feedback memo and program cache keyed by mesh
+
+
+def _mesh_sig(mesh) -> tuple:
+    """Hashable mesh identity for the memo key: observations from an
+    8-shard mesh must never warm-start a 2-shard plan."""
+    if mesh is None:
+        return ()
+    return tuple(sorted((str(a), int(s)) for a, s in mesh.shape.items()))
+
+
+def _row_table(table):
+    """A table with the row layout of ``table`` (the first shard of a
+    sharded one) for the byte estimates."""
+    return table.shards[0] if hasattr(table, "shards") else table
+
+
+def _varlen_width_maxes(table) -> Optional[dict]:
+    """Device-resident per-column max byte length of every varlen column
+    of ``table`` (``{col_idx: int32 scalar}``, over every shard of a
+    sharded one), or None when it has none. The reductions ride the
+    attempt's one overflow read, so observing widths costs no extra
+    host sync. Dead padding rows have zero length: the max only
+    over-pins, never truncates."""
+    parts = table.shards if hasattr(table, "shards") else [table]
+    first = parts[0].columns[0].device if parts[0].columns else torch.device("cpu")
+    out = {}
+    for ci, c in enumerate(parts[0].columns):
+        if not c.is_varlen:
+            continue
+        maxes = [(p.columns[ci].offsets[1:] - p.columns[ci].offsets[:-1]).max().to(first)
+                 for p in parts if int(p.columns[ci].offsets.shape[0]) >= 2]
+        if maxes:
+            out[ci] = torch.stack(maxes).max().to(torch.int32)
+    return out or None
+
+
+def _host_ints(tree):
+    """ONE device -> host read of every tensor in a nested dict / list /
+    tuple (ints for scalars, int lists for vectors)."""
+    leaves = []
+
+    def enc(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return ("T", tuple(x.shape))
+        if isinstance(x, dict):
+            return ("D", [(k, enc(v)) for k, v in x.items()])
+        if isinstance(x, (list, tuple)):
+            return ("L", [enc(v) for v in x])
+        return ("C", x)
+
+    spec = enc(tree)
+    if leaves:
+        dev = leaves[0].device
+        flat = torch.cat([t.reshape(-1).to(dev).to(torch.int64) for t in leaves]).tolist()
+    else:
+        flat = []
+    it = iter(flat)
+
+    def dec(s):
+        if s[0] == "T":
+            n = 1
+            for d in s[1]:
+                n *= d
+            vals = [next(it) for _ in range(n)]
+            return vals[0] if not s[1] else vals
+        if s[0] == "D":
+            return {k: dec(v) for k, v in s[1]}
+        if s[0] == "L":
+            return [dec(v) for v in s[1]]
+        return s[1]
+
+    return dec(spec)
+
+
+def _group_by_program(mesh, axis, keys, aggs_sig, plan):
+    """Cached ``distributed_group_by`` program for one (mesh, static
+    plan) point: ``(table, occupied) -> (res, occ, ovf, stats)``. The
+    mesh programs run their operator in its sync-free form
+    (``ops/_strategy.fusing``), as the JAX package's run theirs under
+    jit: no eager size check raises inside, every shortfall is
+    counted."""
+    widths = plan["string_widths"]
+    wire = plan["wire_widths"]
+    cap, mcap, salt = plan["capacity"], plan["merge_capacity"], plan["salt"]
+    key = ("group_by", mesh, axis, keys, aggs_sig, cap, mcap, salt,
+           _widths_sig(widths), _widths_sig(wire))
+
+    def build():
+        from ..ops.aggregate import Agg
+        from ..parallel.distributed import distributed_group_by
+
+        aggs = [Agg(o, c) for o, c in aggs_sig]
+
+        # sprtcheck: dispatch-path
+        def run(table, occupied):
+            with fusing():
+                return distributed_group_by(
+                    table, list(keys), aggs, mesh, axis=axis, capacity=cap, occupied=occupied,
+                    string_widths=widths, wire_widths=wire, merge_capacity=mcap,
+                    shuffle_salt=salt, overflow_detail=True, with_stats=True,
+                )
+
+        return run
+
+    return _exec_program(key, "group_by", _mesh_sig(mesh), plan, build)
+
+
+def _join_program(mesh, axis, l_on, r_on, how, plan):
+    """Cached ``distributed_join`` program for one (mesh, static plan)
+    point: ``(left, right, left_occupied, right_occupied) -> (res, occ,
+    ovf, stats)``. Used only when every varlen column of both sides
+    carries a pinned width (no eager width staging inside)."""
+    lw, rw = plan["left_string_widths"], plan["right_string_widths"]
+    lwire, rwire = plan["left_wire_widths"], plan["right_wire_widths"]
+    scap, ocap = plan["shuffle_capacity"], plan["out_capacity"]
+    key = ("join", mesh, axis, l_on, r_on, how, scap, ocap, _widths_sig(lw), _widths_sig(rw),
+           _widths_sig(lwire), _widths_sig(rwire))
+
+    def build():
+        from ..parallel.distributed import distributed_join
+
+        # sprtcheck: dispatch-path
+        def run(left, right, left_occupied, right_occupied):
+            with fusing():
+                return distributed_join(
+                    left, right, list(l_on), list(r_on), mesh, how=how, axis=axis,
+                    left_occupied=left_occupied, right_occupied=right_occupied,
+                    shuffle_capacity=scap, out_capacity=ocap, left_string_widths=lw,
+                    right_string_widths=rw, left_wire_widths=lwire, right_wire_widths=rwire,
+                    overflow_detail=True, with_stats=True,
+                )
+
+        return run
+
+    return _exec_program(key, "join", _mesh_sig(mesh), plan, build)
+
+
+def _shuffle_program(mesh, axis, keys, plan):
+    """Cached ``hash_shuffle`` program for one (mesh, static plan)
+    point: ``(table, occupied) -> (out, occ, ovf, fill)``; the max
+    bucket fill reduces inside, so the warm path pays the same single
+    host read as the eager adaptive path."""
+    widths, wire = plan["string_widths"], plan["wire_widths"]
+    cap = plan["capacity"]
+    key = ("shuffle", mesh, axis, keys, cap, _widths_sig(widths), _widths_sig(wire))
+
+    def build():
+        from ..parallel.shuffle import hash_shuffle
+
+        # sprtcheck: dispatch-path
+        def run(table, occupied):
+            with fusing():
+                out, occ, ovf = hash_shuffle(table, list(keys), mesh, axis=axis, capacity=cap,
+                                             occupied=occupied, string_widths=widths,
+                                             wire_widths=wire)
+            return out, occ, ovf, _max_bucket_fill(mesh, occ, cap)
+
+        return run
+
+    return _exec_program(key, "shuffle", _mesh_sig(mesh), plan, build)
+
+
+def _max_bucket_fill(mesh, occ, cap: int) -> torch.Tensor:
+    """The observed max (sender, destination) bucket fill of a shuffle's
+    received masks (int32 scalar on the first mesh device)."""
+    first = mesh.devices[0]
+    fills = torch.stack([o.reshape(-1, cap).sum(1).max().to(first) if o.numel() else
+                         torch.zeros((), dtype=torch.int64, device=first) for o in occ])
+    return fills.max().to(torch.int32)
+
+
+def _merge_skew(stats: Optional[dict]) -> float:
+    """max/mean distinct-key placement skew of the last attempt's
+    per-shard merge-need vector (0.0 when unobserved)."""
+    if not stats:
+        return 0.0
+    v = stats.get("merge_groups_per_dev")
+    if v is None or len(v) == 0:
+        return 0.0
+    mean = float(sum(int(x) for x in v)) / len(v)
+    return float(max(int(x) for x in v)) / mean if mean > 0 else 0.0
+
+
+def _estimate_group_by_bytes(table, n_dev: int, plan: dict) -> int:
+    # dominant allocations: the phase-2 exchanged partials (every shard
+    # can receive all senders' padded phase-1 outputs) plus the phase-3
+    # merge planes at their own capacity
+    row_b = _table_row_bytes(_row_table(table), plan.get("string_widths"))
+    cap = int(plan["capacity"])
+    mc = plan.get("merge_capacity")
+    merge_rows = (n_dev * cap + 1) if mc is None else int(mc)
+    return n_dev * n_dev * cap * row_b + n_dev * merge_rows * row_b
+
+
+def _estimate_join_bytes(left, right, n_dev: int, plan: dict) -> int:
+    lb = _table_row_bytes(_row_table(left), plan.get("left_string_widths"))
+    rb = _table_row_bytes(_row_table(right), plan.get("right_string_widths"))
+    sc = plan.get("shuffle_capacity")
+    if sc is None:
+        sc = max(left.num_rows, right.num_rows) // max(n_dev, 1)
+    shuffled = n_dev * n_dev * int(sc) * (lb + rb)
+    out = n_dev * int(plan["out_capacity"]) * (lb + rb)
+    return shuffled + out
+
+
+def group_by(
+    table,
+    key_indices: Sequence[int],
+    aggs,
+    mesh,
+    axis: str = "data",
+    capacity: Optional[int] = None,
+    occupied=None,
+    string_widths: Optional[dict] = None,
+    wire_widths: Optional[dict] = None,
+    collect: bool = True,
+    merge_capacity: Optional[int] = None,
+    shuffle_salt: int = 0,
+):
+    """Adaptive ``distributed_group_by``: an undersized ``capacity`` /
+    ``merge_capacity`` / pinned width becomes retries with grown plans
+    instead of an error. Returns the collected Table (``collect=True``)
+    or the padded ``(result, occupied)`` pair, both overflow-free.
+
+    A ``final_merge`` overflow grows the per-shard ``merge_capacity``
+    count-informed, never the quadratic widen through ``capacity``;
+    when the per-shard merge-need vector shows a placement skew at or
+    above ``EXEC_SKEW_THRESHOLD``, the re-plan re-rolls the phase-2
+    placement with a salted seed instead (``capacity.repartition``
+    counts it). Salting is ``collect=True``-only: with
+    ``collect=False`` the padded shards flow onward and may
+    co-partition against unsalted exchanges. Under the capacity-feedback
+    knob and a retrying scope, a warm call starts from the previous
+    call's observations (the executor feedback memo)."""
+    from ..parallel.distributed import collect_group_by, distributed_group_by
+    from ..parallel.mesh import axis_size as _axis_size
+
+    n_dev = _axis_size(mesh, axis)
+    n_local = table.num_rows // max(n_dev, 1)
+    plan = {
+        "capacity": int(capacity) if capacity is not None else max(n_local, 1),
+        "merge_capacity": None if merge_capacity is None else int(merge_capacity),
+        "salt": int(shuffle_salt),
+        "string_widths": dict(string_widths) if string_widths else None,
+        "wire_widths": dict(wire_widths) if wire_widths else None,
+    }
+    keys_t = tuple(int(k) for k in key_indices)
+    aggs_sig = tuple((a.op, a.column) for a in aggs)
+    cols0 = _row_table(table).columns
+    varlen_used = sorted(ci for ci in {*keys_t, *(c for _, c in aggs_sig if c is not None)}
+                         if cols0[ci].is_varlen)
+    memo_key = _exec_memo_key("group_by", _mesh_sig(mesh), plan, (keys_t, aggs_sig))
+    warm = _apply_exec_feedback(memo_key, plan)
+    # the memo rewrote the plan: it has observed this site before
+    converged = warm is not plan
+    if converged:
+        # memo-derived buckets stay inside the always-safe ceilings
+        plan = warm
+        plan["capacity"] = min(plan["capacity"], max(n_local, 1))
+        if plan["merge_capacity"] is not None:
+            plan["merge_capacity"] = min(plan["merge_capacity"], n_dev * plan["capacity"] + 1)
+    if not collect:
+        # a salted placement is private to a COLLECTED result
+        plan["salt"] = int(shuffle_salt)
+    holder: Dict[str, object] = {}
+
+    def _prog_ok(p):
+        w = p["string_widths"] or {}
+        return all(ci in w for ci in varlen_used)
+
+    def attempt(p):
+        if _use_program("group_by", _exec_adaptive(), converged, _prog_ok(p)):
+            res, occ, ovf, stats = _group_by_program(mesh, axis, keys_t, aggs_sig, p)(
+                table, occupied)
+        else:
+            res, occ, ovf, stats = distributed_group_by(
+                table, key_indices, aggs, mesh, axis=axis, capacity=p["capacity"],
+                occupied=occupied, string_widths=p["string_widths"],
+                wire_widths=p["wire_widths"], merge_capacity=p["merge_capacity"],
+                shuffle_salt=p["salt"], overflow_detail=True, with_stats=True,
+            )
+        # ONE host read: the overflow counts and the observation vectors
+        hc, hs = _host_ints((ovf, stats))
+        holder["plan"], holder["stats"] = dict(p), hs
+        return (res, occ), {k: int(v) for k, v in hc.items()}
+
+    def replan(p, counts, exc):
+        new = dict(p)
+        grew = False
+        c = counts or {}
+        needed = exc.needed if exc is not None else None
+        if c.get("input_truncation") or (exc is not None and exc.stage == "string_width"):
+            w = _double_widths(p["string_widths"], needed)
+            if w != p["string_widths"]:
+                new["string_widths"], grew = w, True
+        if c.get("shuffle"):
+            w = _double_widths(p["string_widths"])
+            if w != p["string_widths"]:
+                new["string_widths"], grew = w, True
+            if p["wire_widths"]:
+                # full storage width is always round-trip safe
+                new["wire_widths"], grew = None, True
+        if c.get("local_groups"):
+            # the counts bound the true per-shard need from above:
+            # count-informed jump, x2 floor, local row count ceiling
+            want = p["capacity"] + c.get("local_groups", 0)
+            cap = min(max(GROWTH * p["capacity"], want), max(n_local, 1))
+            if cap > p["capacity"]:
+                new["capacity"], grew = cap, True
+        if c.get("final_merge"):
+            skew = _merge_skew(holder.get("stats"))
+            if collect and skew >= EXEC_SKEW_THRESHOLD and p["salt"] < MAX_SHUFFLE_SALT:
+                new["salt"], grew = p["salt"] + 1, True
+                _metrics.counter("capacity.repartition").inc()
+            else:
+                eff = (p["merge_capacity"] if p["merge_capacity"] is not None
+                       else n_dev * p["capacity"] + 1)
+                want = eff + c.get("final_merge", 0)
+                mc = min(max(GROWTH * eff, want), n_dev * new["capacity"] + 1)
+                if mc > eff:
+                    new["merge_capacity"], grew = mc, True
+        return new if grew else None
+
+    value = _run_with_retry("group_by", attempt, replan,
+                            lambda p: _estimate_group_by_bytes(table, n_dev, p), plan)
+    stats = holder.get("stats") or {}
+    obs = {}
+    if "local_groups_per_dev" in stats:
+        obs["capacity"] = int(max(stats["local_groups_per_dev"]))
+    if "merge_groups_per_dev" in stats:
+        obs["merge_capacity"] = int(max(stats["merge_groups_per_dev"]))
+    final_plan = holder.get("plan")
+    if final_plan is not None and not collect:
+        # a caller-forced collect=False salt must not clobber a learned one
+        final_plan = {k: v for k, v in final_plan.items() if k != "salt"}
+    _record_exec_feedback(memo_key, "group_by", final_plan, obs)
+    res, occ = value
+    return collect_group_by(res, occ, n_dev=n_dev) if collect else (res, occ)
+
+
+def join(
+    left,
+    right,
+    left_on: Sequence[int],
+    right_on: Sequence[int],
+    mesh,
+    how: str = "inner",
+    axis: str = "data",
+    left_occupied=None,
+    right_occupied=None,
+    shuffle_capacity: Optional[int] = None,
+    out_capacity: Optional[int] = None,
+    left_string_widths: Optional[dict] = None,
+    right_string_widths: Optional[dict] = None,
+    left_wire_widths: Optional[dict] = None,
+    right_wire_widths: Optional[dict] = None,
+    collect: bool = True,
+):
+    """Adaptive ``distributed_join``: undersized ``out_capacity`` /
+    ``shuffle_capacity`` / pinned widths retry with grown plans. Under
+    the capacity-feedback knob and a retrying scope, a warm call starts
+    from the previous call's observations (the true per-shard output
+    need rides the overflow read)."""
+    from ..parallel.distributed import collect_table, distributed_join
+    from ..parallel.mesh import axis_size as _axis_size
+
+    n_dev = _axis_size(mesh, axis)
+    nl_local = left.num_rows // max(n_dev, 1)
+    nr_local = right.num_rows // max(n_dev, 1)
+    plan = {
+        "shuffle_capacity": shuffle_capacity,
+        "out_capacity": (int(out_capacity) if out_capacity is not None
+                         else max(nl_local, nr_local)),
+        "left_string_widths": dict(left_string_widths) if left_string_widths else None,
+        "right_string_widths": dict(right_string_widths) if right_string_widths else None,
+        "left_wire_widths": dict(left_wire_widths) if left_wire_widths else None,
+        "right_wire_widths": dict(right_wire_widths) if right_wire_widths else None,
+    }
+    l_on_t = tuple(int(k) for k in left_on)
+    r_on_t = tuple(int(k) for k in right_on)
+    memo_key = _exec_memo_key("join", _mesh_sig(mesh), plan, (l_on_t, r_on_t, str(how)))
+    warm = _apply_exec_feedback(memo_key, plan)
+    converged = warm is not plan
+    if converged:
+        plan = warm
+        if plan["shuffle_capacity"] is not None:
+            plan["shuffle_capacity"] = min(int(plan["shuffle_capacity"]),
+                                           max(nl_local, nr_local, 1))
+    holder: Dict[str, object] = {}
+    lcols, rcols = _row_table(left).columns, _row_table(right).columns
+
+    def _pins_ok(p):
+        lw = p["left_string_widths"] or {}
+        rw = p["right_string_widths"] or {}
+        return (all(ci in lw for ci, c in enumerate(lcols) if c.is_varlen)
+                and all(ci in rw for ci, c in enumerate(rcols) if c.is_varlen))
+
+    def attempt(p):
+        # the stats vectors feed only the memo: off the adaptive path
+        # nothing consumes them
+        ws = _exec_adaptive()
+        if _use_program("join", ws, converged, _pins_ok(p)):
+            res, occ, ovf, stats = _join_program(mesh, axis, l_on_t, r_on_t, str(how), p)(
+                left, right, left_occupied, right_occupied)
+            hc, hs = _host_ints((ovf, stats))
+            holder["stats"] = hs
+        else:
+            ret = distributed_join(
+                left, right, left_on, right_on, mesh, how=how, axis=axis,
+                left_occupied=left_occupied, right_occupied=right_occupied,
+                shuffle_capacity=p["shuffle_capacity"], out_capacity=p["out_capacity"],
+                left_string_widths=p["left_string_widths"],
+                right_string_widths=p["right_string_widths"],
+                left_wire_widths=p["left_wire_widths"],
+                right_wire_widths=p["right_wire_widths"],
+                overflow_detail=True, with_stats=ws,
+            )
+            if ws:
+                res, occ, ovf, stats = ret
+                # an unpinned side's width maxes ride the same read and
+                # seed the memo, so the next call pins into the program
+                lw_obs = None if p["left_string_widths"] else _varlen_width_maxes(left)
+                rw_obs = None if p["right_string_widths"] else _varlen_width_maxes(right)
+                hc, hs, hlw, hrw = _host_ints((ovf, stats, lw_obs, rw_obs))
+                holder["stats"] = hs
+                if hlw:
+                    holder["left_widths"] = {int(ci): int(w) for ci, w in hlw.items()}
+                if hrw:
+                    holder["right_widths"] = {int(ci): int(w) for ci, w in hrw.items()}
+            else:
+                res, occ, ovf = ret
+                hc = _host_ints(ovf)
+        holder["plan"] = dict(p)
+        return (res, occ), {k: int(v) for k, v in hc.items()}
+
+    def _grow_side(new, p, side, grew):
+        w = _double_widths(p[f"{side}_string_widths"])
+        if w != p[f"{side}_string_widths"]:
+            new[f"{side}_string_widths"], grew = w, True
+        if p[f"{side}_wire_widths"]:
+            new[f"{side}_wire_widths"], grew = None, True
+        sc = p["shuffle_capacity"]
+        if sc is not None:
+            cap = min(GROWTH * sc, max(nl_local, nr_local, 1))
+            if cap > sc:
+                new["shuffle_capacity"], grew = cap, True
+        return grew
+
+    def replan(p, counts, exc):
+        new = dict(p)
+        grew = False
+        c = counts or {}
+        if c.get("left_shuffle"):
+            grew = _grow_side(new, p, "left", grew)
+        if c.get("right_shuffle"):
+            grew = _grow_side(new, p, "right", grew)
+        needed = exc.needed if exc is not None and exc.stage == "join_output" else None
+        if c.get("join_output") or needed is not None:
+            # the count bounds the true need from above: one retry
+            # suffices even for a badly skewed shard
+            cap = max(GROWTH * p["out_capacity"], p["out_capacity"] + c.get("join_output", 0),
+                      needed or 0)
+            if cap > p["out_capacity"]:
+                new["out_capacity"], grew = cap, True
+        if exc is not None and exc.stage == "string_width":
+            for side in ("left", "right"):
+                w = _double_widths(p[f"{side}_string_widths"], exc.needed)
+                if w != p[f"{side}_string_widths"]:
+                    new[f"{side}_string_widths"], grew = w, True
+        return new if grew else None
+
+    value = _run_with_retry("join", attempt, replan,
+                            lambda p: _estimate_join_bytes(left, right, n_dev, p), plan)
+    stats = holder.get("stats") or {}
+    obs = {}
+    if "out_needed_per_dev" in stats:
+        obs["out_capacity"] = int(max(stats["out_needed_per_dev"]))
+    if holder.get("left_widths"):
+        obs["left_string_widths"] = holder["left_widths"]
+    if holder.get("right_widths"):
+        obs["right_string_widths"] = holder["right_widths"]
+    _record_exec_feedback(memo_key, "join", holder.get("plan"), obs)
+    res, occ = value
+    return collect_table(res, occ, n_dev=n_dev) if collect else (res, occ)
+
+
+def shuffle(
+    table,
+    key_indices: Sequence[int],
+    mesh,
+    axis: str = "data",
+    capacity: Optional[int] = None,
+    occupied=None,
+    string_widths: Optional[dict] = None,
+    wire_widths: Optional[dict] = None,
+):
+    """Adaptive ``hash_shuffle``: returns an overflow-free padded
+    ``(table, occupied)`` pair, growing bucket capacity / pinned widths
+    (and dropping wire pins) as needed. The re-planner never salts the
+    placement: murmur3(key) ownership is this op's result contract.
+    Under the capacity-feedback knob and a retrying scope, warm calls
+    start from the observed max bucket fill of the previous call."""
+    from ..parallel.mesh import axis_size as _axis_size
+    from ..parallel.shuffle import hash_shuffle
+
+    n_dev = _axis_size(mesh, axis)
+    n_local = table.num_rows // max(n_dev, 1)
+    plan = {
+        "capacity": int(capacity) if capacity is not None else n_local,
+        "string_widths": dict(string_widths) if string_widths else None,
+        "wire_widths": dict(wire_widths) if wire_widths else None,
+    }
+    keys_t = tuple(int(k) for k in key_indices)
+    memo_key = _exec_memo_key("shuffle", _mesh_sig(mesh), plan, (keys_t,))
+    warm = _apply_exec_feedback(memo_key, plan)
+    converged = warm is not plan
+    if converged:
+        plan = warm
+        plan["capacity"] = min(plan["capacity"], max(n_local, 1))
+    holder: Dict[str, object] = {}
+    cols0 = _row_table(table).columns
+
+    def _pins_ok(p):
+        w = p["string_widths"] or {}
+        return all(ci in w for ci, c in enumerate(cols0) if c.is_varlen)
+
+    def attempt(p):
+        adaptive = _exec_adaptive()
+        if _use_program("shuffle", adaptive, converged, _pins_ok(p)):
+            out, occ, ovf, fill = _shuffle_program(mesh, axis, keys_t, p)(table, occupied)
+            ho, hf = _host_ints((ovf, fill))
+            holder["fill"] = int(hf)
+        else:
+            out, occ, ovf = hash_shuffle(table, key_indices, mesh, axis=axis,
+                                         capacity=p["capacity"], occupied=occupied,
+                                         string_widths=p["string_widths"],
+                                         wire_widths=p["wire_widths"])
+            if adaptive:
+                # on a drop-free attempt the receive-side occupancy IS
+                # the true bucket need; widths ride the same read
+                fill = _max_bucket_fill(mesh, occ, p["capacity"])
+                wobs = None if p["string_widths"] else _varlen_width_maxes(table)
+                ho, hf, hw = _host_ints((ovf, fill, wobs))
+                holder["fill"] = int(hf)
+                if hw:
+                    holder["widths"] = {int(ci): int(w) for ci, w in hw.items()}
+            else:
+                ho = _host_ints(ovf)
+        holder["plan"] = dict(p)
+        return (out, occ), {"shuffle": int(ho)}
+
+    def replan(p, counts, exc):
+        # one count merges bucket drops and width truncations: grow
+        # every knob that can absorb the overflow
+        new = dict(p)
+        grew = False
+        needed = exc.needed if exc is not None else None
+        w = _double_widths(p["string_widths"], needed)
+        if w != p["string_widths"]:
+            new["string_widths"], grew = w, True
+        if p["wire_widths"]:
+            new["wire_widths"], grew = None, True
+        want = p["capacity"] + (counts or {}).get("shuffle", 0)
+        cap = min(max(GROWTH * p["capacity"], want), n_local)
+        if cap > p["capacity"]:
+            new["capacity"], grew = cap, True
+        return new if grew else None
+
+    def estimate(p):
+        row_b = _table_row_bytes(_row_table(table), p.get("string_widths"))
+        return n_dev * n_dev * int(p["capacity"]) * row_b
+
+    value = _run_with_retry("shuffle", attempt, replan, estimate, plan)
+    obs = {}
+    if holder.get("fill") is not None:
+        obs["capacity"] = int(holder["fill"])
+    if holder.get("widths"):
+        obs["string_widths"] = holder["widths"]
+    _record_exec_feedback(memo_key, "shuffle", holder.get("plan"), obs)
     return value

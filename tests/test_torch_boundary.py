@@ -99,7 +99,7 @@ def test_interop_round_trip():
                 np.testing.assert_array_equal(b[key], c[key])
 
 
-# Every module of the port's q1 slice, imported in a fresh interpreter in
+# Every module of the port's q1 slice, imported in an interpreter in
 # which ``jax`` and the JAX package cannot be imported at all: the import
 # succeeds only if nothing it pulls in, directly or transitively, needs
 # either.
@@ -117,23 +117,6 @@ Q1_SLICE_MODULES = [
 ]
 
 
-@pytest.mark.parametrize("module", Q1_SLICE_MODULES)
-def test_q1_slice_module_imports_without_jax(module):
-    path = os.path.join(ROOT, *module.split(".")) + ".py"
-    bad = [m for m in _imported_modules(path) if m and m.split(".")[0] in FORBIDDEN]
-    assert not bad, bad
-    blocker = "import sys\nfor name in %r:\n    sys.modules[name] = None\n" % (FORBIDDEN,)
-    code = blocker + (
-        f"import {module}\n"
-        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in %r and sys.modules[m])\n"
-        "assert not loaded, loaded\n" % (FORBIDDEN,)
-    )
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-
-
 # The modules of the join slice (TPC-H q5) and the host row codec, and
 # the attribute each must carry, imported the same way.
 Q5_SLICE_MODULES = [
@@ -142,25 +125,6 @@ Q5_SLICE_MODULES = [
     ("spark_rapids_jni_tpu_torch.kernels._build", "HOST_SOURCES"),
     ("spark_rapids_jni_tpu_torch.api", "Join"),
 ]
-
-
-@pytest.mark.parametrize("module,attr", Q5_SLICE_MODULES)
-def test_q5_slice_module_imports_without_jax(module, attr):
-    path = os.path.join(ROOT, *module.split(".")) + ".py"
-    bad = [m for m in _imported_modules(path) if m and m.split(".")[0] in FORBIDDEN]
-    assert not bad, bad
-    blocker = "import sys\nfor name in %r:\n    sys.modules[name] = None\n" % (FORBIDDEN,)
-    code = blocker + (
-        f"import {module} as mod\n"
-        f"assert hasattr(mod, {attr!r})\n"
-        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in %r and sys.modules[m])\n"
-        "assert not loaded, loaded\n" % (FORBIDDEN,)
-    )
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-
 
 # The modules of the store_sales slice (Parquet ingress, casts, JSON),
 # imported the same way.
@@ -175,10 +139,147 @@ STORE_SALES_SLICE_MODULES = [
     ("spark_rapids_jni_tpu_torch.api", "JSONUtils"),
 ]
 
+# The modules of the slice that finishes config 4's string layer (the
+# float cast, from_json and the nested Parquet assembly), imported the
+# same way.
+STRING_LAYER_MODULES = [
+    ("spark_rapids_jni_tpu_torch.columnar.nested", "ListColumn"),
+    ("spark_rapids_jni_tpu_torch.runtime.errors", "JsonParsingException"),
+    ("spark_rapids_jni_tpu_torch.ops.ragged", "next_pow2"),
+    ("spark_rapids_jni_tpu_torch.ops.cast_string", "string_to_float"),
+    ("spark_rapids_jni_tpu_torch.regex.compile", "scalar_token_monoid"),
+    ("spark_rapids_jni_tpu_torch.ops._strategy", "scan_strategy"),
+    ("spark_rapids_jni_tpu_torch.ops.segmented", "lane_scan"),
+    ("spark_rapids_jni_tpu_torch.ops._json_scans", "deep_grammar_errors"),
+    ("spark_rapids_jni_tpu_torch.ops.map_utils", "from_json"),
+    ("spark_rapids_jni_tpu_torch.ops.parquet_reader", "_assemble_node"),
+    ("spark_rapids_jni_tpu_torch.api", "MapUtils"),
+]
+
+# The modules of the slice that adds the telemetry base, Regex, ZOrder
+# and the prefetched scan, imported the same way.
+SCAN_REGEX_ZORDER_MODULES = [
+    ("spark_rapids_jni_tpu_torch.runtime.metrics", "counter"),
+    ("spark_rapids_jni_tpu_torch.runtime.events", "EVENT_NAMES"),
+    ("spark_rapids_jni_tpu_torch.runtime.spans", "span"),
+    ("spark_rapids_jni_tpu_torch.runtime.scan", "prefetch_chunks"),
+    ("spark_rapids_jni_tpu_torch.columnar.interop", "table_from_numpy"),
+    ("spark_rapids_jni_tpu_torch.ops.regex", "regexp_extract"),
+    ("spark_rapids_jni_tpu_torch.ops.zorder", "hilbert_index"),
+    ("spark_rapids_jni_tpu_torch.api", "Regex"),
+    ("spark_rapids_jni_tpu_torch.api", "ZOrder"),
+    ("spark_rapids_jni_tpu_torch.api", "scan_chunks"),
+    ("spark_rapids_jni_tpu_torch.api", "ScanPlan"),
+]
+
+# The modules of the window/rollup and fused-execution slice, imported
+# the same way.
+PIPELINE_SLICE_MODULES = [
+    ("spark_rapids_jni_tpu_torch.ops.window", "window"),
+    ("spark_rapids_jni_tpu_torch.ops.rollup", "grouping_sets"),
+    ("spark_rapids_jni_tpu_torch.runtime.errors", "RetryOOMError"),
+    ("spark_rapids_jni_tpu_torch.runtime.faultinj", "inject_point"),
+    ("spark_rapids_jni_tpu_torch.runtime.trace", "op_range"),
+    ("spark_rapids_jni_tpu_torch.runtime.flight", "maybe_record"),
+    ("spark_rapids_jni_tpu_torch.runtime.resource", "run_plan_deferred"),
+    ("spark_rapids_jni_tpu_torch.runtime.pipeline", "Pipeline"),
+    ("spark_rapids_jni_tpu_torch.runtime.explain", "render_journal"),
+    ("spark_rapids_jni_tpu_torch.parallel.distributed", "collect_table"),
+    ("spark_rapids_jni_tpu_torch.explain", "main"),
+    ("spark_rapids_jni_tpu_torch.flight", "main"),
+    ("spark_rapids_jni_tpu_torch.api", "RmmSpark"),
+]
+
+# The modules of the exchange slice (the mesh, the exchange interface,
+# the shuffle, the distributed operators, the mesh executors and the
+# sharded stream), imported the same way.
+EXCHANGE_SLICE_MODULES = [
+    ("spark_rapids_jni_tpu_torch.parallel.mesh", "Mesh"),
+    ("spark_rapids_jni_tpu_torch.parallel.mesh", "ShardedTable"),
+    ("spark_rapids_jni_tpu_torch.parallel.exchange", "all_to_all"),
+    ("spark_rapids_jni_tpu_torch.parallel.exchange", "psum"),
+    ("spark_rapids_jni_tpu_torch.parallel.shuffle", "hash_shuffle"),
+    ("spark_rapids_jni_tpu_torch.parallel.shuffle", "partition_exchange"),
+    ("spark_rapids_jni_tpu_torch.parallel.distributed", "distributed_group_by"),
+    ("spark_rapids_jni_tpu_torch.parallel.distributed", "distributed_join"),
+    ("spark_rapids_jni_tpu_torch.parallel.distributed", "distributed_join_broadcast"),
+    ("spark_rapids_jni_tpu_torch.parallel.distributed", "distributed_sort"),
+    ("spark_rapids_jni_tpu_torch.parallel.distributed", "set_collect_shrink"),
+    ("spark_rapids_jni_tpu_torch.runtime.resource", "group_by"),
+    ("spark_rapids_jni_tpu_torch.runtime.resource", "join"),
+    ("spark_rapids_jni_tpu_torch.runtime.resource", "shuffle"),
+    ("spark_rapids_jni_tpu_torch.runtime.pipeline", "broadcast_budget"),
+    ("spark_rapids_jni_tpu_torch.parallel", "shuffle"),
+]
+
+IMPORT_CASES = ([(m, None) for m in Q1_SLICE_MODULES] + Q5_SLICE_MODULES
+                + STORE_SALES_SLICE_MODULES + STRING_LAYER_MODULES + SCAN_REGEX_ZORDER_MODULES
+                + PIPELINE_SLICE_MODULES + EXCHANGE_SLICE_MODULES)
+
+# One interpreter imports every module in turn with the forbidden
+# packages blocked, and reports per (module, attr): whether the import
+# succeeded (with the error), whether the attribute is there, and the
+# forbidden modules loaded so far. A module that needs JAX fails at its
+# own import: Python drops a module whose import failed, so the next
+# module that needs the same dependency fails at its own import too.
+_IMPORTER = """
+import importlib, json, sys, traceback
+forbidden, cases = json.loads(sys.argv[1])
+for name in forbidden:
+    sys.modules[name] = None
+rows = []
+for module, attr in cases:
+    row = {"ok": True, "error": None, "has_attr": None}
+    try:
+        mod = importlib.import_module(module)
+        row["has_attr"] = attr is None or hasattr(mod, attr)
+    except BaseException:
+        row["ok"], row["error"] = False, traceback.format_exc()[-2000:]
+    row["loaded"] = sorted(m for m in sys.modules
+                           if m.split(".")[0] in forbidden and sys.modules[m])
+    rows.append(row)
+print(json.dumps(rows))
+"""
+
+
+@pytest.fixture(scope="module")
+def import_report():
+    """{(module, attr): row} from ONE interpreter (see ``_IMPORTER``)."""
+    import json
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORTER, json.dumps([FORBIDDEN, IMPORT_CASES])],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    rows = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {tuple(case): row for case, row in zip(IMPORT_CASES, rows)}
+
+
+def _check_import(report, module, attr):
+    path = os.path.join(ROOT, *module.split("."))
+    path = path + ".py" if os.path.exists(path + ".py") else os.path.join(path, "__init__.py")
+    bad = [m for m in _imported_modules(path) if m and m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    row = report[(module, attr)]
+    assert row["ok"], row["error"]
+    assert row["has_attr"], f"{module} has no {attr}"
+    assert not row["loaded"], row["loaded"]
+
+
+@pytest.mark.parametrize("module", Q1_SLICE_MODULES)
+def test_q1_slice_module_imports_without_jax(import_report, module):
+    _check_import(import_report, module, None)
+
+
+@pytest.mark.parametrize("module,attr", Q5_SLICE_MODULES)
+def test_q5_slice_module_imports_without_jax(import_report, module, attr):
+    _check_import(import_report, module, attr)
+
 
 @pytest.mark.parametrize("module,attr", STORE_SALES_SLICE_MODULES)
-def test_store_sales_slice_module_imports_without_jax(module, attr):
-    test_q5_slice_module_imports_without_jax(module, attr)
+def test_store_sales_slice_module_imports_without_jax(import_report, module, attr):
+    _check_import(import_report, module, attr)
 
 
 def test_read_table_default_device_is_cuda(tmp_path):
@@ -199,27 +300,9 @@ def test_read_table_default_device_is_cuda(tmp_path):
     assert read_table(path, device="cpu").num_rows == 100
 
 
-# The modules of the slice that finishes config 4's string layer (the
-# float cast, from_json and the nested Parquet assembly), imported the
-# same way.
-STRING_LAYER_MODULES = [
-    ("spark_rapids_jni_tpu_torch.columnar.nested", "ListColumn"),
-    ("spark_rapids_jni_tpu_torch.runtime.errors", "JsonParsingException"),
-    ("spark_rapids_jni_tpu_torch.ops.ragged", "next_pow2"),
-    ("spark_rapids_jni_tpu_torch.ops.cast_string", "string_to_float"),
-    ("spark_rapids_jni_tpu_torch.regex.compile", "scalar_token_monoid"),
-    ("spark_rapids_jni_tpu_torch.ops._strategy", "scan_strategy"),
-    ("spark_rapids_jni_tpu_torch.ops.segmented", "lane_scan"),
-    ("spark_rapids_jni_tpu_torch.ops._json_scans", "deep_grammar_errors"),
-    ("spark_rapids_jni_tpu_torch.ops.map_utils", "from_json"),
-    ("spark_rapids_jni_tpu_torch.ops.parquet_reader", "_assemble_node"),
-    ("spark_rapids_jni_tpu_torch.api", "MapUtils"),
-]
-
-
 @pytest.mark.parametrize("module,attr", STRING_LAYER_MODULES)
-def test_string_layer_module_imports_without_jax(module, attr):
-    test_q5_slice_module_imports_without_jax(module, attr)
+def test_string_layer_module_imports_without_jax(import_report, module, attr):
+    _check_import(import_report, module, attr)
 
 
 STRING_LAYER_ENTRIES = {
@@ -248,26 +331,9 @@ def test_string_layer_entry_default_device_is_cuda(name):
     assert out.to_pylist()[1] is None
 
 
-# The modules of the slice that adds the telemetry base, Regex, ZOrder
-# and the prefetched scan, imported the same way.
-SCAN_REGEX_ZORDER_MODULES = [
-    ("spark_rapids_jni_tpu_torch.runtime.metrics", "counter"),
-    ("spark_rapids_jni_tpu_torch.runtime.events", "EVENT_NAMES"),
-    ("spark_rapids_jni_tpu_torch.runtime.spans", "span"),
-    ("spark_rapids_jni_tpu_torch.runtime.scan", "prefetch_chunks"),
-    ("spark_rapids_jni_tpu_torch.columnar.interop", "table_from_numpy"),
-    ("spark_rapids_jni_tpu_torch.ops.regex", "regexp_extract"),
-    ("spark_rapids_jni_tpu_torch.ops.zorder", "hilbert_index"),
-    ("spark_rapids_jni_tpu_torch.api", "Regex"),
-    ("spark_rapids_jni_tpu_torch.api", "ZOrder"),
-    ("spark_rapids_jni_tpu_torch.api", "scan_chunks"),
-    ("spark_rapids_jni_tpu_torch.api", "ScanPlan"),
-]
-
-
 @pytest.mark.parametrize("module,attr", SCAN_REGEX_ZORDER_MODULES)
-def test_scan_regex_zorder_module_imports_without_jax(module, attr):
-    test_q5_slice_module_imports_without_jax(module, attr)
+def test_scan_regex_zorder_module_imports_without_jax(import_report, module, attr):
+    _check_import(import_report, module, attr)
 
 
 SCAN_REGEX_ZORDER_ENTRIES = {
@@ -324,28 +390,14 @@ def test_scan_default_device_is_cuda(tmp_path, entry):
         assert sum(c.num_rows for c in make(path, device="cpu")) == 100
 
 
-# The modules of the window/rollup and fused-execution slice, imported
-# the same way.
-PIPELINE_SLICE_MODULES = [
-    ("spark_rapids_jni_tpu_torch.ops.window", "window"),
-    ("spark_rapids_jni_tpu_torch.ops.rollup", "grouping_sets"),
-    ("spark_rapids_jni_tpu_torch.runtime.errors", "RetryOOMError"),
-    ("spark_rapids_jni_tpu_torch.runtime.faultinj", "inject_point"),
-    ("spark_rapids_jni_tpu_torch.runtime.trace", "op_range"),
-    ("spark_rapids_jni_tpu_torch.runtime.flight", "maybe_record"),
-    ("spark_rapids_jni_tpu_torch.runtime.resource", "run_plan_deferred"),
-    ("spark_rapids_jni_tpu_torch.runtime.pipeline", "Pipeline"),
-    ("spark_rapids_jni_tpu_torch.runtime.explain", "render_journal"),
-    ("spark_rapids_jni_tpu_torch.parallel.distributed", "collect_table"),
-    ("spark_rapids_jni_tpu_torch.explain", "main"),
-    ("spark_rapids_jni_tpu_torch.flight", "main"),
-    ("spark_rapids_jni_tpu_torch.api", "RmmSpark"),
-]
-
-
 @pytest.mark.parametrize("module,attr", PIPELINE_SLICE_MODULES)
-def test_pipeline_slice_module_imports_without_jax(module, attr):
-    test_q5_slice_module_imports_without_jax(module, attr)
+def test_pipeline_slice_module_imports_without_jax(import_report, module, attr):
+    _check_import(import_report, module, attr)
+
+
+@pytest.mark.parametrize("module,attr", EXCHANGE_SLICE_MODULES)
+def test_exchange_slice_module_imports_without_jax(import_report, module, attr):
+    _check_import(import_report, module, attr)
 
 
 def test_scan_parquet_default_device_is_cuda(tmp_path):
@@ -367,3 +419,22 @@ def test_scan_parquet_default_device_is_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         p.scan_parquet(path)
     assert sum(t.num_rows for t in p.scan_parquet(path, device="cpu")) == 100
+
+
+def test_make_mesh_default_is_cuda():
+    """``make_mesh`` takes CUDA devices and raises past their count (no
+    quiet CPU mesh); a CPU mesh is asked for by naming its devices."""
+    from spark_rapids_jni_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have:
+        assert make_mesh(1).devices[0].type == "cuda"
+        # a named card is indexed, as the tensors on it report it
+        assert Mesh(["cuda"] * 8).shared_device == torch.zeros(1, device="cuda").device
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Mesh(["cuda"] * 8)
+    with pytest.raises(ValueError, match=f"need {have + 1} devices, have {have}"):
+        make_mesh(have + 1)
+    mesh = Mesh(["cpu"] * 8)
+    assert mesh.size == 8 and mesh.shared_device == torch.device("cpu")

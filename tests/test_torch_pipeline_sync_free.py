@@ -11,7 +11,9 @@ to the host or copies host data in: ``.item()`` / ``int()`` / ``bool()``
 ``masked_select``, ``unique``, ``repeat_interleave`` without an output
 size, and tensors built from host data (``lift_fresh``: ``torch.tensor``,
 a scalar stored into a tensor). The chains are chip_smoke.py's q1, q5
-and store_sales chains and one chain over every other stage kind."""
+and store_sales chains and one chain over every other stage kind, and
+the q1 and q5 chains sharded over 8 CPU shards (``stream(shard=...)``:
+the exchange, the distributed group-by and joins inside the chain)."""
 
 import collections
 import os
@@ -65,6 +67,22 @@ def dispatch_traffic(pipe, table):
     sync(dispatch(plan))
     watch = HostTraffic()
     dispatch, sync, _ = pipe._dispatch_fns(table, False)
+    with watch:
+        value = dispatch(plan)
+    assert not any(sync(value).values())
+    return dict(watch.hits)
+
+
+def sharded_dispatch_traffic(pipe, table, mesh):
+    """Host traffic of the second dispatch of one chunk through the
+    chain sharded over ``mesh``, at the stream's plan."""
+    spec = pipe._resolve_shard(mesh)
+    plan = pipe._initial_plan(table.num_rows, None, shard_n=spec.n_dev,
+                              bcast=pipe._bcast_choices(spec))
+    dispatch, sync, _ = pipe._dispatch_fns(table, False, shard=spec)
+    sync(dispatch(plan))
+    watch = HostTraffic()
+    dispatch, sync, _ = pipe._dispatch_fns(table, False, shard=spec)
     with watch:
         value = dispatch(plan)
     assert not any(sync(value).values())
@@ -138,3 +156,22 @@ def test_detector_sees_a_syncing_map_stage():
     t = port.Table([port.Column.from_pylist([1, 2, 3], INT32, device="cpu")])
     pipe = Pipeline("sf_bad").map(lambda tb: tb if int(tb.columns[0].data.max()) > 0 else tb)
     assert dispatch_traffic(pipe, t) == {"aten._local_scalar_dense.default": 1}
+
+
+def test_sharded_chains_are_sync_free():
+    from spark_rapids_jni_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(["cpu"] * 8)
+    a = chip_smoke.q1_batch_arrays(np.random.default_rng(42), 4099)  # pads to 8 shards
+    assert sharded_dispatch_traffic(chip_smoke.q1_pipeline("sf_q1_sharded"),
+                                    chip_smoke.q1_table(a, "cpu"), mesh) == {}
+    d = chip_smoke.q5_data(n_supp=200, n_cust=3000, n_ord=20000)
+    t = chip_smoke.q5_tables(d, "cpu", batch=1 << 13)
+    built = chip_smoke.q5_build(t)
+    pipe = (Pipeline("sf_q5_sharded")
+            .join(built["build"], [0], [0], "inner", right_string_widths={2: 16},
+                  broadcast=False)
+            .join(t["supplier"], [1, 5], [0, 1], "inner", left_string_widths={6: 16})
+            .map(chip_smoke.q5_revenue, name="q5_revenue")
+            .group_by([6], [Aggregation.Agg("sum", 9)], capacity=32, string_widths={6: 16}))
+    assert sharded_dispatch_traffic(pipe, t["lineitem"][0], mesh) == {}
