@@ -153,14 +153,33 @@ Phases, each fatal on failure:
      Pipeline.stream(window=2, shard=<8-shard Mesh>) in turns with the
      unsharded stream, value-identical; rows/s, ops per chunk, plan
      misses and hits; one sharded graph dispatch under sync debug mode
-  29. one JSON line of kernel numbers (with murmur3's launches on every
-     path: rung 1 and the exchange paths 26-28 launch it, the others
-     0), the card line, then the verdict
+  29. the serving driver (api.serving_server) with the diag server up and
+     the sampler armed at 19 Hz: four tenants, each submitting from its
+     own client thread: phase 21's q1 chain (2 jobs of 4 chunks), phase
+     22's q5 join chain (2 jobs of 3 lineitem batches), the store_sales
+     chain over a lazy scan of 4 of phase 12's row groups (1 job), and a
+     shuffle write (q1's filter and products at 2 Mi-row chunks, then
+     HashPartitioning ids over l_orderkey into 200 partitions through
+     the murmur3 kernel; 2 jobs of 4 chunks); every job exact against
+     its host oracle and the serial single-tenant run of the same
+     chunks; /healthz, /metrics, /sessions, /slo, /plans, /spans and
+     /profile scraped while they run; per tenant e2e p50/p99, rows/s
+     served and serial, the time in each state, slices per job, plan-
+     cache misses and hits, the admission estimate beside the measured
+     peak; the time-in-state closure; the device idle share; the
+     sampler's cost in turns; one warm dispatch slice under sync debug
+     mode "error"; a burst at 1/8 of the priced bytes that queues and
+     rejects at admission; one slow-job flight bundle; a trace.timeline
+     of one q1 chunk and the phase's journal through traceview
+  30. one JSON line of kernel numbers (with murmur3's launches on every
+     path: rung 1, the exchange paths 26-28 and serving launch it, the
+     others 0), the card line, then the verdict
 
 Exits non-zero, printing no verdict, without a card or without the port
 beside it. Data is made from fixed seeds.
 """
 
+import gc
 import json
 import os
 import shutil
@@ -174,11 +193,15 @@ import torch
 
 try:  # the names the Pipeline stage functions below read (an import in
     # a stage function's body would hide its reads from the plan key)
+    from spark_rapids_jni_tpu_torch import INT32 as PortINT32
+    from spark_rapids_jni_tpu_torch import Column as PortColumn
     from spark_rapids_jni_tpu_torch import Table as PortTable
     from spark_rapids_jni_tpu_torch.api import DecimalUtils as PortDecimalUtils
     from spark_rapids_jni_tpu_torch.columnar.strings import to_char_matrix
+    from spark_rapids_jni_tpu_torch.parallel import spark_hash as port_spark_hash
 except ImportError:  # chip_smoke.py without the port beside it: main() fails
-    PortTable = PortDecimalUtils = to_char_matrix = None
+    PortINT32 = PortColumn = PortTable = PortDecimalUtils = to_char_matrix = None
+    port_spark_hash = None
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -342,14 +365,7 @@ def profile_stage(label, fn, top=6):
     if not dev:
         print(f"profile [{label}]: no device events; device busy not measured")
         return
-    busy, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
-    for s, e, _ in dev[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
+    busy = union_us([(s, e) for s, e, _ in dev])
     start = min(e.time_range.start for e in events)
     window = max(e for _, e, _ in dev) - start
     by_name = {}
@@ -360,6 +376,18 @@ def profile_stage(label, fn, top=6):
           f"{window:.1f} us window (idle {1 - busy / window:.3f})")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {t:10.1f} us  x{c:<4d} {name[:100]}")
+
+
+def union_us(intervals):
+    """Length of the union of sorted (start, end) intervals."""
+    busy, cur_s, cur_e = 0.0, intervals[0][0], intervals[0][1]
+    for s, e in intervals[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + cur_e - cur_s
 
 
 def murmur3_numpy_int64_pairs(a, b, seed=42):
@@ -4086,6 +4114,664 @@ def sharded_sync_free(pipe, table, mesh):
           "sync", flush=True)
 
 
+# ---- the serving driver: four tenants on one card (phase 29) ----
+
+SERVE_SHUFFLE_ROWS = Q1_BATCH // 2  # the shuffle-write tenant's 2 Mi-row chunks
+SERVE_SS_ROW_GROUPS = 4  # row groups of phase 12's file the store_sales tenant scans
+SERVE_MARGIN = 4 << 30  # device bytes the server keeps out of its capacity
+SAMPLER_HZ = 19.0  # the sampler's default rate
+SAMPLER_TURNS = ("off", "on", "on", "off", "off", "on")  # the sampler in the rounds after the first
+SERVE_OOM_BYTES = 1 << 46  # an allocation no card holds: a real CUDA OOM mid-flight
+
+
+def q1_shuffle_prep(t):
+    """q1's decimal products with l_orderkey (column 7) kept for the
+    shuffle write."""
+    return PortTable(list(q1_prep(t).columns) + [t.columns[7]])
+
+
+def q1_shuffle_ids(t):
+    """A Spark shuffle write's placement: HashPartitioning ids over
+    l_orderkey into 200 partitions (the murmur3 kernel), appended."""
+    pids = port_spark_hash.partition_ids(PortTable([t.columns[7]]), NUM_PARTITIONS)
+    return PortTable(list(t.columns) + [PortColumn(PortINT32, pids)])
+
+
+def q1_shuffle_pipeline(name):
+    """q1's filter and decimal products, then the shuffle write's
+    partition ids: a second executable beside the q1 tenant's."""
+    from spark_rapids_jni_tpu_torch.api import Pipeline
+
+    return (Pipeline(name).filter(q1_ship_filter).map(q1_shuffle_prep, name="q1_decimal_prep")
+            .map(q1_shuffle_ids, name="partition_ids"))
+
+
+def oom_stage(t):
+    """A map stage whose allocation no card can hold: a real
+    torch.cuda.OutOfMemoryError inside a served job."""
+    torch.empty(SERVE_OOM_BYTES, dtype=torch.uint8, device=t.columns[0].data.device)
+    return t
+
+
+def q1_shuffle_chunk(arrays, l_orderkey, device):
+    """A q1 batch with l_orderkey appended as column 7 (INT64)."""
+    from spark_rapids_jni_tpu_torch import INT64, Column, Table
+
+    t = q1_table(arrays, device)
+    key = Column(INT64, torch.from_numpy(np.ascontiguousarray(l_orderkey)).to(device))
+    return Table(list(t.columns) + [key])
+
+
+def q1_shuffle_check(out, arrays, l_orderkey, label):
+    """One chunk of the shuffle tenant against its host arrays: the kept
+    rows in order, their decimal products, and partition ids equal to
+    the plain Murmur3 chain's over the kept l_orderkey."""
+    from spark_rapids_jni_tpu_torch import Table
+    from spark_rapids_jni_tpu_torch.kernels import murmur3
+
+    keep = arrays["ship"] <= Q1_CUTOFF
+    n = int(keep.sum())
+    cols = out.columns
+    if out.num_rows != n or len(cols) != 9:
+        raise AssertionError(f"{label}: {out.num_rows} rows x {len(cols)} columns, want {n} x 9")
+    dev = cols[0].data.device
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    price, disc, tax = (arrays[k][keep] for k in ("price", "disc", "tax"))
+    dp = price * (100 - disc)
+    want = {"rf": (cols[0].data, arrays["rf"][keep]), "ls": (cols[1].data, arrays["ls"][keep]),
+            "qty": (cols[2].data, arrays["qty"][keep]), "price": (cols[3].data, price),
+            "disc_price": (cols[4].data[:, 0], dp), "charge": (cols[5].data[:, 0], dp * (100 + tax)),
+            "disc": (cols[6].data, disc), "l_orderkey": (cols[7].data, l_orderkey[keep])}
+    for name, (got, w) in want.items():
+        if not torch.equal(got, put(w)):
+            raise AssertionError(f"{label}: column {name} differs from the host arrays")
+    if bool(cols[4].data[:, 1].any()) or bool(cols[5].data[:, 1].any()):
+        raise AssertionError(f"{label}: a product's high limb is not 0")
+    words, valids, plan = murmur3.table_plan(Table([cols[7]]))
+    plain = port_spark_hash.pmod(
+        murmur3.hash_planes_plain(words, valids, plan, port_spark_hash.DEFAULT_SEED),
+        NUM_PARTITIONS)
+    if not torch.equal(cols[8].data, plain):
+        raise AssertionError(f"{label}: partition ids differ from the plain Murmur3 chain's")
+
+
+def same_tables(a, b):
+    """Two collected results hold the same values: each column's data,
+    validity and offsets (a string payload up to its last offset)."""
+    if a.num_rows != b.num_rows or len(a.columns) != len(b.columns):
+        return False
+    for x, y in zip(a.columns, b.columns):
+        if not torch.equal(x.validity_or_true(), y.validity_or_true()):
+            return False
+        if x.offsets is None:
+            if not torch.equal(x.data, y.data):
+                return False
+        elif not (torch.equal(x.offsets, y.offsets)
+                  and torch.equal(x.data[:int(x.offsets[-1])], y.data[:int(y.offsets[-1])])):
+            return False
+    return True
+
+
+def ss_serve_source(path, n_rg, drain=None):
+    """The store_sales tenant's lazy chunk source: phase 12's file through
+    ScanPlan -> prefetch_chunks, its first ``n_rg`` row groups. Records
+    the wall of its drain into ``drain`` (first request to last chunk)."""
+    from spark_rapids_jni_tpu_torch.api import ScanPlan, prefetch_chunks
+
+    t0 = time.perf_counter()
+    with ScanPlan(path, columns=SS_COLUMNS) as plan:
+        gen = prefetch_chunks(plan)
+        try:
+            for i, chunk in enumerate(gen):
+                if i == n_rg:
+                    break
+                yield chunk
+        finally:
+            gen.close()
+    if drain is not None:
+        drain.append((t0, time.perf_counter()))
+
+
+def serve_tenants(q1_ctx, q5_ctx, ss_path, ss_oracles, shuffle_rows=SERVE_SHUFFLE_ROWS,
+                  device="cuda"):
+    """The four tenants of phase 29. Each: its Pipeline, one chunk-source
+    factory per job, the rows of each job, and ``check(job, i, out)``
+    holding chunk ``i`` of job ``job`` against its host oracle."""
+    from spark_rapids_jni_tpu_torch.api import Aggregation, Pipeline
+
+    q1_tabs, q1_want = q1_ctx["tables"][:4], q1_ctx["want"][:4]
+    li, d = q5_ctx["tables"]["lineitem"], q5_ctx["data"]
+    q5_pipe = (Pipeline("q5")
+               .join(q5_ctx["build"], [0], [0], "inner", right_string_widths={2: 16})
+               .join(q5_ctx["supplier"], [1, 5], [0, 1], "inner", left_string_widths={6: 16})
+               .map(q5_revenue, name="q5_revenue")
+               .group_by([6], [Aggregation.Agg("sum", 9)], capacity=32, string_widths={6: 16}))
+    q5_want = [sorted(q5_oracle(d, i * Q5_BATCH, (i + 1) * Q5_BATCH).items()) for i in range(6)]
+    rng = np.random.default_rng(29)
+    sh_arrays = [q1_batch_arrays(rng, shuffle_rows) for _ in range(4)]
+    sh_keys = [d["l_orderkey"][i * shuffle_rows:(i + 1) * shuffle_rows] for i in range(4)]
+    sh_tabs = [q1_shuffle_chunk(a, k, device) for a, k in zip(sh_arrays, sh_keys)]
+    drains = []
+
+    def q1_check(job, i, out):
+        if q1_rows(out) != q1_want[i]:
+            raise AssertionError(f"serving q1 job {job} chunk {i} differs from the host oracle")
+
+    def q5_check(job, i, out):
+        if q5_rows(out) != q5_want[3 * job + i]:
+            raise AssertionError(f"serving q5 job {job} batch {i} differs from the host oracle")
+
+    def ss_check(job, i, out):
+        if ss_result(out) != ss_oracles[i]:
+            raise AssertionError(f"serving store_sales row group {i} differs from the oracle")
+
+    def sh_check(job, i, out):
+        q1_shuffle_check(out, sh_arrays[i], sh_keys[i], f"serving q1_shuffle job {job} chunk {i}")
+
+    ss_rows = sum(min(SS_RG, SS_ROWS - i * SS_RG) for i in range(SERVE_SS_ROW_GROUPS))
+    return {
+        "q1": {"pipe": q1_pipeline("q1"), "sources": [lambda: q1_tabs] * 2,
+               "rows": [sum(t.num_rows for t in q1_tabs)] * 2, "check": q1_check},
+        "q5": {"pipe": q5_pipe, "sources": [lambda: li[0:3], lambda: li[3:6]],
+               "rows": [sum(t.num_rows for t in li[0:3]), sum(t.num_rows for t in li[3:6])],
+               "check": q5_check},
+        "store_sales": {"pipe": ss_pipeline("store_sales"),
+                        "sources": [lambda: ss_serve_source(ss_path, SERVE_SS_ROW_GROUPS,
+                                                            drains)],
+                        "rows": [ss_rows], "check": ss_check, "drains": drains,
+                        # submitted once the others are in flight: its scan
+                        # drains on the dispatch thread while they wait
+                        "submit_delay_s": 0.05},
+        "q1_shuffle": {"pipe": q1_shuffle_pipeline("q1_shuffle"), "sources": [lambda: sh_tabs] * 2,
+                       "rows": [sum(t.num_rows for t in sh_tabs)] * 2, "check": sh_check},
+    }
+
+
+def serve_round(srv, sessions, tenants, during=None, rejects=None):
+    """Every tenant's jobs submitted at once from the tenant's own client
+    thread. ``during()`` runs on this thread while they are served. A job
+    refused at admission raises unless ``rejects`` (a list) collects it.
+    Returns the round's wall seconds and {tenant: ([(source index, job)],
+    wall s)}."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch.serving import AdmissionRejected
+
+    out, errors = {}, []
+    gate = threading.Barrier(len(tenants) + 1)
+
+    def client(name, spec):
+        try:
+            gate.wait()
+            t0 = time.perf_counter()
+            time.sleep(spec.get("submit_delay_s", 0.0))
+            jobs = [srv.submit(sessions[name], spec["pipe"], src(), window=2)
+                    for src in spec["sources"]]
+            done = []
+            for k, j in enumerate(jobs):
+                try:
+                    j.result(timeout=600)
+                    done.append((k, j))
+                except AdmissionRejected as e:
+                    if rejects is None:
+                        raise
+                    rejects.append((name, e.reason, e.estimate))
+            out[name] = (done, time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 -- re-raised below
+            errors.append(f"{name}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=item, name=f"client-{item[0]}")
+               for item in tenants.items()]
+    for th in threads:
+        th.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    try:
+        if during is not None:
+            during(lambda: any(th.is_alive() for th in threads))
+    finally:
+        for th in threads:
+            th.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"serving round: {errors}")
+    return wall, out
+
+
+def check_round(tenants, out, serial=None):
+    """Every job's results against its tenant's oracle and, when given,
+    the serial single-tenant run of the same chunks."""
+    for name, (jobs, _) in out.items():
+        spec = tenants[name]
+        for k, job in jobs:
+            for i, res in enumerate(job.results):
+                spec["check"](k, i, res)
+                if serial is not None and not same_tables(res, serial[name][k][i]):
+                    raise AssertionError(f"serving {name} job {k} chunk {i} differs from the "
+                                         f"serial run of the same chunks")
+
+
+def closure_error(job):
+    """|queued + dispatch + device + retire - e2e| of a finished job, ms."""
+    return abs(sum(job.states.values()) - job.e2e_ms)
+
+
+def device_busy(fn):
+    """``fn()`` under torch.profiler: (device busy us as the union of
+    kernel intervals, the window from the first host op to the last
+    kernel end in us, kernel count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == DeviceType.CUDA)
+    if not dev:
+        return None
+    window = max(e for _, e in dev) - min(e.time_range.start for e in events)
+    return union_us(dev), window, len(dev)
+
+
+def spans_resolve(tree, pending):
+    """Walk every in-flight ``Pipeline.*`` op span of one ``/spans``
+    scrape up its parents: it must pass its task span and reach its job
+    span. ``pending`` maps an op span id to its consecutive failed
+    scrapes (a span moving between a thread's stack and the detached set
+    between the two reads of one scrape misses once). Returns the ops
+    resolved."""
+    nodes = [s for th in tree["threads"] for s in th["stack"]] + tree["detached"]
+    by_id = {s["span_id"]: s for s in nodes}
+    resolved = 0
+    for s in nodes:
+        if s["kind"] != "op" or not s["name"].startswith("Pipeline."):
+            continue
+        cur, kinds = s, []
+        while cur is not None and cur["kind"] != "job":
+            kinds.append(cur["kind"])
+            cur = by_id.get(cur["parent_id"])
+        if cur is not None and "task" in kinds:
+            resolved += 1
+            pending.pop(s["span_id"], None)
+        else:
+            pending[s["span_id"]] = pending.get(s["span_id"], 0) + 1
+            if pending[s["span_id"]] >= 3:
+                raise AssertionError(f"/spans: op span {s['name']} does not resolve to its task "
+                                     f"and job in 3 scrapes: {kinds}")
+    return resolved
+
+
+def scrape_during(port, sessions_expected, seen, alive):
+    """The diag scrapes while the counted round runs: /healthz,
+    /metrics, /sessions, /slo, /plans once each, /profile?seconds=1 on a
+    thread of its own, and /spans until the round's clients are done."""
+    import threading
+    import urllib.request
+
+    from spark_rapids_jni_tpu_torch.runtime import diag
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as r:
+            return r.read().decode()
+
+    prof = {}
+
+    def profile():
+        try:
+            prof["text"] = get("/profile?seconds=1")
+        except Exception as e:  # noqa: BLE001 -- re-raised below
+            prof["error"] = f"{type(e).__name__}: {e}"
+
+    th = threading.Thread(target=profile, name="scrape-profile")
+    th.start()
+    health = json.loads(get("/healthz"))
+    if not health["ok"] or not health["sampler"]["running"]:
+        raise AssertionError(f"/healthz: {health}")
+    diag.parse_prom_text(get("/metrics"))
+    rows = [r for r in json.loads(get("/sessions"))["sessions"] if "session" in r]
+    if len(rows) != sessions_expected:
+        raise AssertionError(f"/sessions: {len(rows)} rows, want {sessions_expected}")
+    slo = json.loads(get("/slo"))
+    plans = json.loads(get("/plans"))
+    if set(plans) != {"plans", "explain", "exec_feedback", "exec_programs"} or "histograms" not in slo:
+        raise AssertionError("/plans or /slo: unexpected document")
+    pending = {}
+    seen["spans_scrapes"] = 0
+    seen["ops_resolved"] = 0
+    while th.is_alive() or alive():
+        seen["ops_resolved"] += spans_resolve(json.loads(get("/spans")), pending)
+        seen["spans_scrapes"] += 1
+        time.sleep(0.05)
+    th.join()
+    if "error" in prof:
+        raise AssertionError(f"/profile: {prof['error']}")
+    if "session:" not in prof["text"]:
+        raise AssertionError(f"/profile?seconds=1 shows no session: frame: {prof['text'][:300]}")
+    seen["profile_stacks"] = len(prof["text"].splitlines())
+    seen["plans"] = len(plans["plans"])
+
+
+def tenant_stats(tenants, out, slices=None):
+    """Per tenant: jobs, rows, e2e ms of each job, the time-in-state ms
+    summed over its jobs, served rows/s over its client's wall, slices
+    per job, the largest gap between two slices of one job."""
+    stats = {}
+    for name, (jobs, wall) in out.items():
+        spec = tenants[name]
+        rows = sum(spec["rows"][k] for k, _ in jobs)
+        st = {"jobs": len(jobs), "rows": rows, "e2e_ms": [j.e2e_ms for _, j in jobs],
+              "states_ms": {k: sum(j.states[k] for _, j in jobs) for k in jobs[0][1].states},
+              "served_rows/s": rows / wall}
+        if slices is not None:
+            marks = [slices.get(j.job_id, []) for _, j in jobs]
+            st["slices_per_job"] = sum(len(m) for m in marks) / len(jobs)
+            st["max_slice_gap_ms"] = max(
+                [(b[1] - a[2]) * 1e3 for m in marks for a, b in zip(m, m[1:])] or [0.0])
+        stats[name] = st
+    return stats
+
+
+def serving_phase(counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp):
+    """Phase 29: the multi-tenant serving driver on the card. Four
+    sessions (q1, q5, store_sales through a lazy scan source, and a
+    shuffle-write tenant that places rows with the murmur3 kernel), each
+    submitting from its own client thread to one ``api.serving_server``
+    with the diag server up and the sampler armed at 19 Hz: every job
+    exact against its host oracle and the serial single-tenant run of
+    the same chunks; the diag scrapes while it runs; rows/s, e2e
+    p50/p99 and the time in each state per tenant, the time-in-state
+    closure, slices per job, plan-cache misses and hits, the admission
+    estimate beside the measured peak, the device idle share, the
+    sampler's cost in turns; one warm dispatch slice under sync debug
+    mode "error"; a 1/8-capacity burst that queues and rejects at the
+    door; one slow-job flight bundle; a ``trace.timeline`` of one q1
+    chunk and the phase's journal through ``traceview``. Returns the
+    kernel launches of the counted round."""
+    import urllib.request
+
+    from spark_rapids_jni_tpu_torch.api import Pipeline, serving_server
+    from spark_rapids_jni_tpu_torch.runtime import diag, flight, metrics, sampler, trace, traceview
+    from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
+    from spark_rapids_jni_tpu_torch.serving import Server
+
+    tenants = serve_tenants(q1_ctx, q5_ctx, ss_path, ss_oracles)
+    journal = os.path.join(tmp, "serving_journal.jsonl")
+    prev_mode = metrics.configure(journal)
+    port = diag.start(0)
+    sampler.start(SAMPLER_HZ)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, _total = torch.cuda.mem_get_info()
+    srv = serving_server(free - SERVE_MARGIN)
+    sessions = {name: srv.open_session(name) for name in tenants}
+    servers = [srv]
+    env_keys = (flight._ENV_VAR, flight.SLO_ENV_VAR)
+    env_prev = {k: os.environ.get(k) for k in env_keys}
+
+    def scrape(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as r:
+            return r.read().decode()
+
+    try:
+        # ---- the counted round: counts at 0, four tenants at once
+        slices, seen = {}, {}
+        orig_slice = Server._slice
+
+        def timed_slice(self, job):
+            t0 = time.perf_counter()
+            try:
+                orig_slice(self, job)
+            finally:
+                slices.setdefault(job.job_id, []).append((job.session.name, t0,
+                                                          time.perf_counter()))
+
+        m0 = plan_counts()[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        served_base = torch.cuda.memory_allocated()
+        for name in counters:
+            counters[name].launches = 0
+        Server._slice = timed_slice
+        try:
+            wall, out = serve_round(srv, sessions, tenants, during=lambda alive: scrape_during(
+                port, len(tenants), seen, alive))
+        finally:
+            Server._slice = orig_slice
+        launches = {name: c.launches for name, c in counters.items()}
+        served_peak = torch.cuda.max_memory_allocated()
+        builds = plan_counts()[0] - m0
+        check_round(tenants, out)
+        n_done = sum(len(jobs) for jobs, _ in out.values())
+        prom = diag.parse_prom_text(scrape("/metrics"))
+        e2e_count = prom[diag.prom_name("serving.e2e_ms") + "_count"]
+        if e2e_count != n_done or prom[diag.prom_name("serving.jobs_done") + "_total"] != n_done:
+            raise AssertionError(f"/metrics: serving.e2e_ms count {e2e_count}, "
+                                 f"{n_done} jobs done")
+        counted = tenant_stats(tenants, out, slices)
+        drain = tenants["store_sales"]["drains"][-1]
+        for name, st in counted.items():
+            gaps = [(b[1] - a[2]) * 1e3 for marks in slices.values()
+                    for a, b in zip(marks, marks[1:])
+                    if a[0] == name and a[2] < drain[1] and b[1] > drain[0]]
+            st["max_slice_gap_during_scan_drain_ms"] = max(gaps or [0.0])
+        estimates = {name: [j.estimate for _, j in jobs] for name, (jobs, _) in out.items()}
+        rows_table = {r["session"]: r for r in srv.sessions_table() if "session" in r}
+        plan_builds = {r["pipeline"]: r["build_wall_ms"] for r in pl.plan_cache_table()
+                       if r["pipeline"] in tenants}
+        all_jobs = [j for jobs, _ in out.values() for _, j in jobs]
+
+        # ---- each tenant's first job alone from a cold plan cache: its
+        # peak over the memory allocated before (the graph's warm-up run
+        # and capture included); the cleared graphs' pool is released
+        # and the next capture takes a fresh one
+        cold_peaks = {}
+        for name, spec in tenants.items():
+            pl.plan_cache_clear()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            spec["pipe"].stream(spec["sources"][0](), window=2)
+            torch.cuda.synchronize()
+            cold_peaks[name] = torch.cuda.max_memory_allocated() - base
+
+        # ---- the serial single-tenant runs of the same jobs (warm)
+        serial, serial_s, peaks = {}, {}, {}
+        for name, spec in tenants.items():
+            serial[name], serial_s[name], peaks[name] = [], 0.0, 0
+            for src in spec["sources"]:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                serial[name].append(spec["pipe"].stream(src(), window=2))
+                torch.cuda.synchronize()
+                serial_s[name] += time.perf_counter() - t0
+                peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() - base)
+        check_round(tenants, out, serial)
+
+        # ---- the sampler's cost: rounds with it disarmed and armed, in turns
+        turns = {"on": [], "off": []}
+        for state in SAMPLER_TURNS:
+            if state == "on":
+                sampler.start(SAMPLER_HZ)
+            else:
+                sampler.stop()
+            w, o = serve_round(srv, sessions, tenants)
+            check_round(tenants, o, serial)
+            turns[state].append(sum(sum(tenants[n]["rows"][k] for k, _ in jobs)
+                                    for n, (jobs, _) in o.items()) / w)
+            all_jobs += [j for jobs, _ in o.values() for _, j in jobs]
+            for name, st in tenant_stats(tenants, o).items():
+                counted[name]["e2e_ms"] += st["e2e_ms"]
+        sampler.start(SAMPLER_HZ)
+        # queued + dispatch + device + retire must close on the e2e wall
+        closure = [(closure_error(j), max(0.5, 0.005 * j.e2e_ms), j.e2e_ms) for j in all_jobs]
+        if any(err > bound for err, bound, _ in closure):
+            raise AssertionError(f"time-in-state closure: {[c for c in closure if c[0] > c[1]]}")
+
+        # ---- a real CUDA OOM inside one tenant's job fails that job only
+        oom_session = srv.open_session("oom")
+        doomed = srv.submit(oom_session, Pipeline("oom").map(oom_stage, name="oom"),
+                            q1_ctx["tables"][:2])
+        fine = srv.submit(sessions["q1"], tenants["q1"]["pipe"], q1_ctx["tables"][:4])
+        try:
+            doomed.result(timeout=600)
+        except torch.cuda.OutOfMemoryError as e:
+            oom_msg = str(e).splitlines()[0][:120]
+        else:
+            raise AssertionError("the OOM tenant's job did not fail")
+        for i, res in enumerate(fine.result(timeout=600)):
+            tenants["q1"]["check"](0, i, res)
+        if not srv._thread.is_alive():
+            raise AssertionError("a tenant's OOM stopped the dispatch loop")
+
+        # ---- the device idle share over one served round
+        prof_out = {}
+        busy = device_busy(lambda: prof_out.setdefault(
+            "r", serve_round(srv, sessions, tenants)))
+        check_round(tenants, prof_out["r"][1], serial)
+
+        # ---- one warm dispatch slice under sync debug mode "error"
+        orig_dispatch = Server._dispatch_one
+        strict = []
+
+        def strict_dispatch(self, job):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                orig_dispatch(self, job)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            strict.append(job.job_id)
+
+        sync_session = srv.open_session("sync_free")
+        q1_tabs = q1_ctx["tables"][:2]
+        m0 = plan_counts()[0]
+        Server._dispatch_one = strict_dispatch
+        try:
+            got = srv.submit(sync_session, tenants["q1"]["pipe"], q1_tabs).result(timeout=600)
+        finally:
+            Server._dispatch_one = orig_dispatch
+        if len(strict) != 2 or plan_counts()[0] != m0:
+            raise AssertionError(f"sync-free check: {len(strict)} slices, a plan was built")
+        for i, res in enumerate(got):
+            tenants["q1"]["check"](0, i, res)
+
+        # ---- the slow-job trigger: one job past its deadline, one bundle
+        fdir = os.path.join(tmp, "flight")
+        os.environ[flight._ENV_VAR] = fdir
+        os.environ[flight.SLO_ENV_VAR] = "3"
+        slo_job = srv.submit(sync_session, tenants["q1"]["pipe"], q1_tabs[:1], deadline_s=0.001)
+        slo_job.result(timeout=600)
+        for k in env_keys:
+            os.environ.pop(k)
+        bundles = [b for b in os.listdir(fdir)
+                   if os.path.exists(os.path.join(fdir, b, "slo.json"))]
+        if len(bundles) != 1 or slo_job.slo_bundle != os.path.join(fdir, bundles[0]):
+            raise AssertionError(f"slow-job bundles: {bundles}")
+        with open(os.path.join(slo_job.slo_bundle, "slo.json")) as f:
+            slo = json.load(f)
+        with open(os.path.join(slo_job.slo_bundle, "sampler.txt")) as f:
+            samp = f.read()
+        if slo["reason"] != "deadline" or len(slo["span_tree"]) < 2 or "session:" not in samp:
+            raise AssertionError(f"slow-job bundle: {slo['reason']}, "
+                                 f"{len(slo['span_tree'])} tree nodes, sampler.txt {samp[:200]!r}")
+
+        # ---- overload: a burst at 1/8 of the priced estimates
+        burst = {name: dict(spec, sources=(spec["sources"] * 2)[:2])
+                 for name, spec in tenants.items()}
+        burst_est = sum(sum((estimates[name] * 2)[:2]) for name in burst)
+        srv2 = Server(burst_est // 8, max_queue=4).start()
+        servers.append(srv2)
+        sessions2 = {name: srv2.open_session(name) for name in burst}
+        q0, r0 = (metrics.counter_value("admission.queued"),
+                  metrics.counter_value("admission.rejected"))
+        rejects = []
+        _, o2 = serve_round(srv2, sessions2, burst, rejects=rejects)
+        queued = metrics.counter_value("admission.queued") - q0
+        rejected = metrics.counter_value("admission.rejected") - r0
+        for name, (jobs, _) in o2.items():
+            for k, job in jobs:
+                for i, res in enumerate(job.results):
+                    burst[name]["check"](k, i, res)
+                    if not same_tables(res, serial[name][k % len(serial[name])][i]):
+                        raise AssertionError(f"burst {name} job {k} chunk {i} differs")
+        if queued < 1 or rejected < 1:
+            raise AssertionError(f"1/8-capacity burst: queued {queued}, rejected {rejected}")
+        admitted = sum(len(jobs) for jobs, _ in o2.values())
+
+        # ---- trace.timeline over one q1 chunk; the journal through traceview
+        with trace.timeline(os.path.join(tmp, "timeline")) as prof:
+            tenants["q1"]["pipe"].run(q1_tabs[0])
+        with open(prof.trace_path) as f:
+            tl = json.load(f)["traceEvents"]
+        n_kernels = sum(1 for e in tl if e.get("cat") == "kernel")
+        if n_kernels < 1 or not any(e.get("name") == "Pipeline.q1" for e in tl):
+            raise AssertionError(f"timeline: {n_kernels} kernel events, Pipeline.q1 range "
+                                 f"{any(e.get('name') == 'Pipeline.q1' for e in tl)}")
+    finally:
+        for s in servers:
+            s.shutdown()
+        sampler.stop()
+        diag.stop()
+        metrics.configure(prev_mode)
+        for k, v in env_prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    _, trace_doc, n_events = traceview.convert(journal, os.path.join(tmp, "serving.trace.json"))
+    problems = traceview.check_trace(trace_doc, min_spans=10)
+    if problems:
+        raise AssertionError(f"traceview of the phase's journal: {problems[:5]}")
+
+    for name, st in counted.items():
+        e2e = np.asarray(st.pop("e2e_ms"))
+        st["e2e_p50_ms"] = float(np.percentile(e2e, 50))
+        st["e2e_p99_ms"] = float(np.percentile(e2e, 99))
+        st["e2e_jobs"] = len(e2e)
+        st["serial_rows/s"] = sum(tenants[name]["rows"]) / serial_s[name]
+        st["plan_cache"] = rows_table[name]["plan_cache"]
+        st["estimate_bytes"] = estimates[name]
+        st["cold_peak_bytes"] = cold_peaks[name]
+        st["warm_peak_bytes"] = peaks[name]
+        st["plan_build_ms"] = plan_builds.get(name)
+        print(f"serving [{name}]: {json.dumps(st)}", flush=True)
+    total_rows = sum(sum(t["rows"]) for t in tenants.values())
+    print(f"serving: {n_done} jobs of 4 tenants exact against their host oracles and their "
+          f"serial runs; counted round {wall * 1e3:.1f} ms, {total_rows / wall:.4g} rows/s, "
+          f"{builds} plans built in it on the dispatch thread, "
+          f"store_sales scan drained there in {(drain[1] - drain[0]) * 1e3:.1f} ms; served "
+          f"peak bytes {served_peak} ({served_peak - served_base} over the {served_base} "
+          f"allocated before); "
+          f"kernel launches {json.dumps(launches)}", flush=True)
+    print(f"serving: time-in-state closure within max(0.5 ms, 0.5 %) for {len(all_jobs)} jobs "
+          f"(largest error {max(c[0] for c in closure):.4f} ms, "
+          f"{max(c[0] / c[2] for c in closure):.2e} of e2e); device busy "
+          + (f"{busy[0]:.1f} us of a {busy[1]:.1f} us served window (idle "
+             f"{1 - busy[0] / busy[1]:.3f}, {busy[2]} kernels)" if busy else "not measured")
+          + f"; sampler at {SAMPLER_HZ:g} Hz rows/s on {json.dumps(turns['on'])} off "
+          f"{json.dumps(turns['off'])}", flush=True)
+    print(f"serving scrapes: /healthz /metrics /sessions /slo /plans ok; /spans "
+          f"{seen['spans_scrapes']} scrapes, {seen['ops_resolved']} in-flight op spans resolved "
+          f"to task and job; /profile?seconds=1 {seen['profile_stacks']} stacks with session "
+          f"frames; one warm dispatch slice x2 under sync debug mode 'error'; burst at 1/8 of "
+          f"{burst_est} priced bytes: {admitted} admitted exact, queued {queued}, rejected "
+          f"{rejected} {json.dumps(rejects)}; a real OOM ({oom_msg}) failed its job only; "
+          f"slow-job bundle {os.path.basename(slo_job.slo_bundle)}"
+          f" ({len(slo['span_tree'])} span-tree nodes, sampler.txt {len(samp.splitlines())} "
+          f"stacks); timeline {n_kernels} kernel events; traceview {n_events} events, "
+          f"check ok; card: {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     phase_t = [time.perf_counter()]
 
@@ -4323,35 +5009,40 @@ def main() -> int:
         # ---- 24. the retry runtime on the card, counted
         launches["retry"] = retry_phase(counters, card, q1_ctx)["murmur3_chain"]
         phase_done("24 retry")
+
+        # ---- 25. the exchange over 8 shards, card against CPU, exact
+        exchange_card_vs_cpu(N_MIXED, card)
+        phase_done("25 exchange card vs cpu")
+
+        # ---- 26. q5 at SF10 over the exchange, counted
+        q5x_launches, exchange_shape = q5_exchange_sf10(counters, card, q5_ctx)
+        launches["q5_exchange"] = q5x_launches["murmur3_chain"]
+        phase_done("26 q5 exchange sf10")
+
+        # ---- 27. the mesh executors under the retry runtime, counted
+        launches["mesh_executors"] = mesh_executors_phase(
+            counters, card, q1_ctx, q5_ctx)["murmur3_chain"]
+        phase_done("27 mesh executors")
+
+        # ---- 28. the sharded stream against the unsharded one, counted
+        launches["sharded_stream"] = sharded_stream_phase(
+            counters, card, q1_ctx, q5_ctx)["murmur3_chain"]
+        phase_done("28 sharded stream")
+
+        # ---- 29. four tenants through the serving driver, counted
+        launches["serving"] = serving_phase(
+            counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp)["murmur3_chain"]
+        del q1_ctx, q5_ctx
+        phase_done("29 serving")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 25. the exchange over 8 shards, card against CPU, exact
-    exchange_card_vs_cpu(N_MIXED, card)
-    phase_done("25 exchange card vs cpu")
-
-    # ---- 26. q5 at SF10 over the exchange, counted
-    q5x_launches, exchange_shape = q5_exchange_sf10(counters, card, q5_ctx)
-    launches["q5_exchange"] = q5x_launches["murmur3_chain"]
-    phase_done("26 q5 exchange sf10")
-
-    # ---- 27. the mesh executors under the retry runtime, counted
-    launches["mesh_executors"] = mesh_executors_phase(
-        counters, card, q1_ctx, q5_ctx)["murmur3_chain"]
-    phase_done("27 mesh executors")
-
-    # ---- 28. the sharded stream against the unsharded one, counted
-    launches["sharded_stream"] = sharded_stream_phase(
-        counters, card, q1_ctx, q5_ctx)["murmur3_chain"]
-    del q1_ctx, q5_ctx
-    phase_done("28 sharded stream")
-
-    on_exchange = ("rung 1", "q5_exchange", "mesh_executors", "sharded_stream")
+    on_exchange = ("rung 1", "q5_exchange", "mesh_executors", "sharded_stream", "serving")
     for path, count in launches.items():
         if (count >= 1) != (path in on_exchange):
             raise AssertionError(f"murmur3 launches on the {path} path: {count}")
 
-    # ---- 29. kernel numbers, card, verdict
+    # ---- 30. kernel numbers, card, verdict
     k = timings["keys"]
     print(json.dumps({"kernels": [{
         "name": "murmur3_chain",

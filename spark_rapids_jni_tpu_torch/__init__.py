@@ -36,6 +36,11 @@ Layer map of the ported slices:
   ops/window, ops/rollup          window functions, ROLLUP / GROUPING SETS
   runtime/metrics, events, spans  telemetry: counters/gauges/timers, the
                                     event journal, causal spans
+  runtime/diag, sampler,          live introspection: the loopback diag
+    traceview, trace                server, the span-stack sampler, journal
+                                    -> Chrome trace, torch.profiler timelines
+  api.serving_server              the multi-tenant serving driver (serving/:
+                                    admission, sessions, the fair interleaver)
   ops/row_conversion_host         host JCUDF codec over native/jcudf_rows.cpp
   parallel/spark_hash             Spark HashPartitioning placement
   parallel/mesh, exchange,        the device mesh, the exchange (all_to_all,
@@ -89,6 +94,18 @@ from .api import (
     read_table,
     scan_chunks,
 )
+
+# live introspection: the diagnostics endpoint (SPARK_JNI_TPU_DIAG=<port>,
+# loopback-only) and the span-stack sampling profiler
+# (SPARK_JNI_TPU_SAMPLER=<hz>) arm from the environment at import, opt-in,
+# so the unarmed cost is two env reads. Both packages read the same
+# variables: when the JAX package already holds a fixed port, this bind
+# fails, logs a warning and leaves the port's server off.
+from .runtime import diag as _diag  # noqa: E402
+from .runtime import sampler as _sampler  # noqa: E402
+
+_diag.maybe_start()
+_sampler.maybe_start()
 
 __version__ = "0.1.0"
 

@@ -215,6 +215,23 @@ Pipeline = _pipeline.Pipeline
 pad_string_payloads = _pipeline.pad_string_payloads
 
 
+def _serving():
+    # lazy: the serving driver is the front door and pulls the
+    # diag/flight stack; importing the facade must not
+    from . import serving as _srv
+
+    return _srv
+
+
+def serving_server(capacity_bytes: int, **kw):
+    """Start a multi-tenant serving driver over this process's device
+    (``spark_rapids_jni_tpu_torch/serving``): admission-controlled,
+    fair-interleaved concurrent ``resource.task`` serving. Returns the
+    started ``Server``; open tenants with ``server.open_session`` and
+    submit ``Pipeline`` work with ``server.submit``."""
+    return _serving().Server(capacity_bytes, **kw).start()
+
+
 class RmmSpark:
     """RmmSpark.java — task-scoped resource manager control surface
     (runtime/resource.py). Not routed through the fault shim: it is the

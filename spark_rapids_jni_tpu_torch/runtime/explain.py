@@ -6,8 +6,8 @@ Two sources, one renderer family (``runtime/pipeline.py``'s
 ``render_plan_rows`` / the journal reconstruction below):
 
 ``python -m spark_rapids_jni_tpu_torch.explain --port 17807``
-    scrape a live diag server's ``/plans`` endpoint (the diag server
-    is not part of the port yet; the JAX package's serves the same
+    scrape a live diag server's ``/plans`` endpoint (``runtime/diag.py``,
+    armed by ``SPARK_JNI_TPU_DIAG``; the JAX package's serves the same
     document) and print its rendered explain — the text a flight
     bundle's ``explain.txt`` carries, from ``plan_cache_table()``
     rows.

@@ -30,9 +30,10 @@ exception hook) atomically writes one bundle directory::
         devices.json         device topology (id/platform/kind/process)
         env.json             SPARK_JNI_TPU_* / CUDA_* / TORCH_* config
                              + interpreter and torch versions
-        sampler.txt          empty: the span-stack sampler is not part
-                             of the port yet (the JAX package writes it
-                             empty too when its sampler never ran)
+        sampler.txt          the span-stack sampler's collapsed stacks
+                             (runtime/sampler.py: the last capture,
+                             else the cumulative table; empty when the
+                             sampler never ran)
 
 Crash-safety and bounds: the bundle is staged under a dot-tmp name and
 ``os.replace``d into place (a reader never sees a half bundle); the
@@ -335,11 +336,18 @@ def _fill_and_commit(
     _dump(tmp, "error.json", _error_payload(exc, task))
     _dump(tmp, "span_stack.json", _spans.active_stack())
 
-    # the sampling profiler's collapsed stacks: empty, as the JAX
-    # package writes them when its sampler never ran — the port has no
-    # sampler yet
-    with open(os.path.join(tmp, "sampler.txt"), "w") as f:
-        f.write("")
+    # where the process was SPENDING ITS TIME: the sampling profiler's
+    # collapsed stacks (runtime/sampler.py: last capture, else the
+    # cumulative table; empty when the sampler never ran). A mailed-in
+    # bundle answers "where was it stuck" as well as "what failed".
+    try:
+        from . import sampler as _sampler
+
+        with open(os.path.join(tmp, "sampler.txt"), "w") as f:
+            f.write(_sampler.flight_text())
+    except Exception as e:  # noqa: BLE001 — recording never raises
+        with open(os.path.join(tmp, "sampler.txt"), "w") as f:
+            f.write(f"# sampler read failed: {e}\n")
 
     # journal tail: schema lines, crash-ordered, bounded
     tail = _events.recent(JOURNAL_TAIL)
@@ -432,7 +440,8 @@ def _fill_and_commit(
 
 # --------------------------------------------------------------------
 # bundle index: the ONE reader of a flight dir's bundle listing,
-# behind the CLI table below
+# shared by the CLI table below and the diag /flight endpoint
+# (runtime/diag.py) so the two cannot drift
 
 
 def _bundle_row(path: str) -> dict:

@@ -83,6 +83,7 @@ from . import events as _events
 from . import metrics as _metrics
 from . import resource as _resource
 from . import spans as _spans
+from . import trace as _trace
 
 # ---------------------------------------------------------------------
 # plan cache (process-wide, bounded). Key = (chain signature, static
@@ -116,9 +117,13 @@ _plan_feedback: "Dict[str, dict]" = {}
 # chain is ~13 GB at 2 Mi rows). The stream is shared too: the
 # allocator reuses a freed block only on the stream it was freed on.
 # The lock serialises captures and replays across threads, since every
-# replay writes the shared pool and its graph's static buffers.
+# replay writes the shared pool and its graph's static buffers. The
+# fourth entry holds the pool's live graphs: once the last one is
+# released (the plan cache cleared or turned over), the allocators drop
+# the pool, and capturing into its id again fails, so the next capture
+# takes a fresh pool id.
 # sprtcheck: guarded-by=_plan_lock
-_graph_pools: "Dict[str, tuple]" = {}
+_graph_pools: "Dict[str, list]" = {}
 _plan_lock = threading.Lock()
 
 
@@ -1128,15 +1133,18 @@ class _EagerProgram:
             return self._fn(chunk, sides)
 
 
-def _graph_pool(dev) -> tuple:
-    """(memory pool, stream, lock) shared by the device's graphs."""
+def _graph_pool(dev) -> list:
+    """[memory pool, stream, lock, live graphs] shared by the device's
+    graphs; a pool with no live graph is replaced by a fresh one."""
     with _plan_lock:
         got = _graph_pools.get(str(dev))
         if got is None:
-            got = _graph_pools[str(dev)] = (
+            got = _graph_pools[str(dev)] = [
                 torch.cuda.graph_pool_handle(), torch.cuda.Stream(device=dev),
-                threading.Lock(),
-            )
+                threading.Lock(), weakref.WeakSet(),
+            ]
+        elif not got[3]:
+            got[0] = torch.cuda.graph_pool_handle()
         return got
 
 
@@ -1161,7 +1169,7 @@ class _GraphProgram:
 
         leaves, self._in_spec = _flatten((chunk, sides))
         dev = leaves[0].device
-        pool, self._stream, self._lock = _graph_pool(dev)
+        pool, self._stream, self._lock, graphs = _graph_pool(dev)
         caller = torch.cuda.current_stream(dev)
         with self._lock:
             self._stream.wait_stream(caller)
@@ -1189,6 +1197,8 @@ class _GraphProgram:
                     f"stage {label} cannot run inside a CUDA graph: it syncs the "
                     f"host or copies from pageable memory ({type(e).__name__}: {e})"
                 ) from e
+            with _plan_lock:
+                graphs.add(self)
             caller.wait_stream(self._stream)
         self._out, self._out_spec = _flatten(out)
 
@@ -2385,8 +2395,10 @@ class Pipeline:
             return (value[0], value[1], value[2]), sync(value)
 
         # op span: the run_plan/retry_round/plan_build/collect_stage
-        # spans below all chain up to it; record_op's op_end closes it
-        with _spans.span("op", f"Pipeline.{self.name}", emit_end=False):
+        # spans below all chain up to it; record_op's op_end closes it.
+        # The op range names the run on NVTX and profiler timelines.
+        with _spans.span("op", f"Pipeline.{self.name}", emit_end=False), \
+                _trace.op_range(f"Pipeline.{self.name}"):
             try:
                 value = _resource.run_plan(
                     op, attempt, self._replan,

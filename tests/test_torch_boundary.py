@@ -212,9 +212,27 @@ EXCHANGE_SLICE_MODULES = [
     ("spark_rapids_jni_tpu_torch.parallel", "shuffle"),
 ]
 
+# The modules of the live-introspection and serving slice (the diag
+# server, the sampler, traceview, trace.timeline, the serving driver and
+# its façade entry), imported the same way.
+SERVING_SLICE_MODULES = [
+    ("spark_rapids_jni_tpu_torch.runtime.diag", "prom_text"),
+    ("spark_rapids_jni_tpu_torch.runtime.diag", "set_sessions_provider"),
+    ("spark_rapids_jni_tpu_torch.runtime.sampler", "capture"),
+    ("spark_rapids_jni_tpu_torch.runtime.traceview", "to_chrome_trace"),
+    ("spark_rapids_jni_tpu_torch.runtime.trace", "timeline"),
+    ("spark_rapids_jni_tpu_torch.runtime.trace", "annotate_function"),
+    ("spark_rapids_jni_tpu_torch.traceview", "main"),
+    ("spark_rapids_jni_tpu_torch.serving", "Server"),
+    ("spark_rapids_jni_tpu_torch.serving.admission", "AdmissionController"),
+    ("spark_rapids_jni_tpu_torch.serving.session", "Session"),
+    ("spark_rapids_jni_tpu_torch.serving.server", "Job"),
+    ("spark_rapids_jni_tpu_torch.api", "serving_server"),
+]
+
 IMPORT_CASES = ([(m, None) for m in Q1_SLICE_MODULES] + Q5_SLICE_MODULES
                 + STORE_SALES_SLICE_MODULES + STRING_LAYER_MODULES + SCAN_REGEX_ZORDER_MODULES
-                + PIPELINE_SLICE_MODULES + EXCHANGE_SLICE_MODULES)
+                + PIPELINE_SLICE_MODULES + EXCHANGE_SLICE_MODULES + SERVING_SLICE_MODULES)
 
 # One interpreter imports every module in turn with the forbidden
 # packages blocked, and reports per (module, attr): whether the import
@@ -438,3 +456,8 @@ def test_make_mesh_default_is_cuda():
         make_mesh(have + 1)
     mesh = Mesh(["cpu"] * 8)
     assert mesh.size == 8 and mesh.shared_device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("module,attr", SERVING_SLICE_MODULES)
+def test_serving_slice_module_imports_without_jax(import_report, module, attr):
+    _check_import(import_report, module, attr)

@@ -3,8 +3,8 @@ the JAX package's: the same failing task leaves a bundle with the same
 layout (files, MANIFEST fields, the error and task-metrics payload, the
 span stack, the journal tail, the touched plans), and the ``ls`` /
 ``show`` CLI reads both packages' bundles alike. ``sampler.txt`` is
-empty in the port: its sampler is not ported yet, and an empty file is
-what the JAX package writes when its sampler never ran."""
+empty here because no sampler ran, as the JAX package writes it then;
+tests/test_torch_diag.py holds the bundle of an armed sampler."""
 
 import json
 import os

@@ -17,35 +17,12 @@ from spark_rapids_jni_tpu.ops.aggregate import Agg as JAgg
 
 import spark_rapids_jni_tpu_torch as port
 from spark_rapids_jni_tpu_torch.api import Pipeline as PPipeline
-from spark_rapids_jni_tpu_torch.columnar import interop
 from spark_rapids_jni_tpu_torch.ops.aggregate import Agg as PAgg
 from spark_rapids_jni_tpu_torch.runtime import metrics
 from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
 
-from torch_parity import numpy_form, to_port
-
-
-def comparable(form):
-    """Numpy interop form with the unspecified parts cleared: a missing
-    mask as all-true, fixed-width data under nulls as 0, a varlen
-    payload cut at its last offset."""
-    out = []
-    for c in form:
-        c = dict(c)
-        n = len(c["offsets"]) - 1 if c["offsets"] is not None else len(c["data"])
-        valid = np.ones(n, bool) if c["validity"] is None else np.asarray(c["validity"])
-        data = np.array(c["data"])
-        if c["offsets"] is None:
-            data[~valid] = 0
-        else:
-            data = data[: int(c["offsets"][-1])]
-        out.append((c["dtype"], data.tolist(), valid.tolist(),
-                    None if c["offsets"] is None else np.asarray(c["offsets"]).tolist()))
-    return out
-
-
-def assert_same(jax_tbl, port_tbl):
-    assert comparable(interop.table_to_numpy(port_tbl)) == comparable(numpy_form(jax_tbl))
+from torch_parity import assert_same_result as assert_same
+from torch_parity import to_port
 
 
 def mixed(n=48, seed=0):

@@ -26,6 +26,7 @@ from spark_rapids_jni_tpu_torch.regex.compile import RegexUnsupported, compile_r
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
+import torch_parity  # noqa: F401,E402  (one torch thread per test process)
 
 STRATEGIES = ("serial", "monoid", "auto")
 

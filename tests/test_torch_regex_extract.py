@@ -21,6 +21,7 @@ from spark_rapids_jni_tpu_torch.ops import _strategy as pstrategy
 from spark_rapids_jni_tpu_torch.ops import regex as pregex
 from spark_rapids_jni_tpu_torch.regex.compile import RegexUnsupported
 from spark_rapids_jni_tpu_torch.runtime import metrics
+import torch_parity  # noqa: F401,E402  (one torch thread per test process)
 
 MODES = {  # the JAX package's strategy arms: (strategy, batching)
     "serial": ("serial", True),

@@ -5,6 +5,7 @@ round trips. Not a test module."""
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from spark_rapids_jni_tpu import Column as JColumn
 from spark_rapids_jni_tpu import Table as JTable
@@ -14,6 +15,14 @@ from spark_rapids_jni_tpu.ops import row_conversion as jrc
 from spark_rapids_jni_tpu_torch.columnar import dtypes as pd
 from spark_rapids_jni_tpu_torch.columnar import interop
 from spark_rapids_jni_tpu_torch.ops import row_conversion as prc
+
+# One intra-op thread per test process. The suite runs as several pytest
+# workers on one machine; torch's default of a thread per core in every
+# worker oversubscribes the cores (its idle threads spin), which slows
+# every worker, the JAX package's compiles included. The port's tensors
+# here are small, and a single thread also fixes the order of torch's CPU
+# reductions. Every worker imports this module while it collects.
+torch.set_num_threads(1)
 
 
 def numpy_form(tbl):
@@ -215,3 +224,28 @@ def host_counts(ovf):
     if isinstance(ovf, dict):
         return {k: int(v) for k, v in ovf.items()}
     return int(ovf)
+
+
+def comparable_form(form):
+    """Numpy interop form with the parts neither package specifies
+    cleared: a missing mask as all-true, fixed-width data under a null
+    as 0, a varlen payload cut at its last offset."""
+    out = []
+    for c in form:
+        n = len(c["offsets"]) - 1 if c["offsets"] is not None else len(c["data"])
+        valid = np.ones(n, bool) if c["validity"] is None else np.asarray(c["validity"])
+        data = np.array(c["data"])
+        if c["offsets"] is None:
+            data[~valid] = 0
+        else:
+            data = data[: int(c["offsets"][-1])]
+        out.append((c["dtype"], data.tolist(), valid.tolist(),
+                    None if c["offsets"] is None else np.asarray(c["offsets"]).tolist()))
+    return out
+
+
+def assert_same_result(jax_tbl, port_tbl):
+    """A collected Pipeline result of the JAX package equals the port's
+    exactly, up to the parts ``comparable_form`` clears."""
+    assert comparable_form(interop.table_to_numpy(port_tbl)) == \
+        comparable_form(numpy_form(jax_tbl))
