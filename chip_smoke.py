@@ -171,9 +171,26 @@ Phases, each fatal on failure:
      mode "error"; a burst at 1/8 of the priced bytes that queues and
      rejects at admission; one slow-job flight bundle; a trace.timeline
      of one q1 chunk and the phase's journal through traceview
-  30. one JSON line of kernel numbers (with murmur3's launches on every
-     path: rung 1, the exchange paths 26-28 and serving launch it, the
-     others 0), the card line, then the verdict
+  30. the JNI dispatch at SF10 widths: the port's JNI library
+     (native/jni/ built by the host compiler, without its PJRT half),
+     the port's backend registered by register() and again by
+     sprt_embed_python(NULL, bootstrap_source()), then every op family
+     through the C pointer SprtBackend.call on tensors on the card, each
+     exact against the direct port call: the casts, from_json and Regex
+     over one 2 Mi-row store_sales row group, the decimal ops over one
+     q1 batch, row conversion and ZOrder over rung 1's lineitem batch,
+     the rmm task ops around a forced retry, the profiler ops, one ANSI
+     cast error (its row and string across the C struct); dispatch ms
+     against the direct call per op; every handle released
+  31. the runtime-boundary fault injector (pjrt.execute, pjrt.compile,
+     pjrt.transfer) over paths that launch murmur3: a retry_oom retried
+     under a task around phase 27's mesh join, a fatal fault that
+     reaches the caller, a status 700 raised on a scan thread during a
+     prefetch and delivered to the consumer, an assert at a cold plan's
+     capture that caches nothing; every result exact
+  32. one JSON line of kernel numbers (with murmur3's launches on every
+     path: rung 1, the exchange paths 26-28, serving and the injector's
+     launch it, the others 0), the card line, then the verdict
 
 Exits non-zero, printing no verdict, without a card or without the port
 beside it. Data is made from fixed seeds.
@@ -3894,6 +3911,16 @@ def q5_exchange_sf10(counters, card, ctx):
                       "build": build, "build_live": build_live}
 
 
+def sorted_table_bytes(tb):
+    """Each column's bytes after sorting the table on every column: equal
+    for two tables with the same rows in any order."""
+    from spark_rapids_jni_tpu_torch.columnar.interop import table_to_numpy
+    from spark_rapids_jni_tpu_torch.ops.sort import SortKey, sort_table
+
+    keys = [SortKey(i) for i in range(tb.num_columns)]
+    return [x["data"].tobytes() for x in table_to_numpy(sort_table(tb, keys))]
+
+
 def mesh_executors_phase(counters, card, q1_ctx, q5_ctx):
     """Phase 27: the mesh executors over 8 shards on the card under the
     retry runtime: group_by over phase 21's q1 batches from an undersized
@@ -3904,8 +3931,6 @@ def mesh_executors_phase(counters, card, q1_ctx, q5_ctx):
     a byte budget. Prints the memo and program-cache rows."""
     from spark_rapids_jni_tpu_torch import Table
     from spark_rapids_jni_tpu_torch.api import Aggregation, Join, RetryOOMError, RmmSpark
-    from spark_rapids_jni_tpu_torch.columnar.interop import table_to_numpy
-    from spark_rapids_jni_tpu_torch.ops.sort import SortKey, sort_table
     from spark_rapids_jni_tpu_torch.parallel import spark_hash
     from spark_rapids_jni_tpu_torch.parallel.distributed import collect_table
     from spark_rapids_jni_tpu_torch.runtime import faultinj, resource
@@ -3918,11 +3943,7 @@ def mesh_executors_phase(counters, card, q1_ctx, q5_ctx):
     want_gb = [sorted(q5_rows_all(Aggregation.groupBy(tb, [0, 1], aggs))) for tb in tables]
     li, sup = q5_ctx["lineitem0"], q5_ctx["supplier"]
 
-    def sorted_rows(tb):
-        keys = [SortKey(i) for i in range(tb.num_columns)]
-        return [x["data"].tobytes() for x in table_to_numpy(sort_table(tb, keys))]
-
-    want_join = sorted_rows(Join.join(li, sup, [1], [0]))
+    want_join = sorted_table_bytes(Join.join(li, sup, [1], [0]))
     # undersized on purpose: the exchange buckets at 3/4 and 1/2 of the
     # balanced share, the join output at 1/8 of the rows a shard gets
     bucket = li.num_rows // mesh.size // mesh.size
@@ -3935,7 +3956,7 @@ def mesh_executors_phase(counters, card, q1_ctx, q5_ctx):
                 raise AssertionError(f"mesh executors [{label}] group_by batch {i} differs")
         got = resource.join(li, sup, [1], [0], mesh, shuffle_capacity=3 * bucket // 4,
                             out_capacity=li.num_rows // mesh.size // 8)
-        if sorted_rows(got) != want_join:
+        if sorted_table_bytes(got) != want_join:
             raise AssertionError(f"mesh executors [{label}] join differs")
         out, occ = resource.shuffle(li, [1], mesh, capacity=bucket // 2)
         for s, (part, o) in enumerate(zip(out.shards, occ)):
@@ -3943,7 +3964,7 @@ def mesh_executors_phase(counters, card, q1_ctx, q5_ctx):
             if bool((o & (pids != s)).any()):
                 raise AssertionError(f"mesh executors [{label}] shuffle: a row on shard {s} "
                                      "hashes elsewhere")
-        if sorted_rows(collect_table(out, occ)) != sorted_rows(li):
+        if sorted_table_bytes(collect_table(out, occ)) != sorted_table_bytes(li):
             raise AssertionError(f"mesh executors [{label}] shuffle lost or changed rows")
 
     for name in counters:
@@ -4477,6 +4498,25 @@ def tenant_stats(tenants, out, slices=None):
     return stats
 
 
+def release_plans():
+    """Drop every cached Pipeline plan, collect the released CUDA graphs
+    and return the allocator's cached blocks to the card, so the next
+    captures lay out their pools in unfragmented memory.
+
+    This works around a fault of the port, and is not how the port is
+    meant to be driven: the plan cache is bounded by a count of graphs
+    (``pipeline._GRAPH_CACHE_CAP``), not by their bytes, and admission
+    does not price the graphs' pools. Without it, a process that runs
+    phases 21-28's chains and then serves runs out of card memory in
+    phase 29 (35.83 GiB of 78.94 GiB held in graph pools)."""
+    from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
+
+    pl.plan_cache_clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def serving_phase(counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp):
     """Phase 29: the multi-tenant serving driver on the card. Four
     sessions (q1, q5, store_sales through a lazy scan source, and a
@@ -4572,9 +4612,7 @@ def serving_phase(counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp):
         # and the next capture takes a fresh one
         cold_peaks = {}
         for name, spec in tenants.items():
-            pl.plan_cache_clear()
-            gc.collect()
-            torch.cuda.synchronize()
+            release_plans()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             spec["pipe"].stream(spec["sources"][0](), window=2)
@@ -4770,6 +4808,397 @@ def serving_phase(counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp):
           f"stacks); timeline {n_kernels} kernel events; traceview {n_events} events, "
           f"check ok; card: {card}", flush=True)
     return launches
+
+# ---- the boundary layers: the JNI dispatch backend over the port's own
+# JNI library, and the runtime-boundary fault injector ----
+
+JNI_RLIKE = r'"channel": "web"'
+JNI_EXTRACT = r'"channel": "([a-z]+)"'
+
+
+def jni_dispatch(backend, op, args):
+    """One call through the C pointer ``SprtBackend.call``, the path the
+    JNI entry points take (run_op). Returns (rc, handles or values,
+    error, error_row, error_str); the C strings are freed here."""
+    import ctypes
+
+    from spark_rapids_jni_tpu_torch.runtime import jni_backend as jb
+
+    arr = (ctypes.c_long * len(args))(*[int(a) for a in args])
+    res = jb.SprtCallResult()
+    res.error_row = -1
+    rc = backend.contents.call(op.encode(), arr, len(args), ctypes.byref(res))
+    texts = []
+    for field in ("error", "error_str"):
+        slot = ctypes.cast(ctypes.addressof(res) + getattr(jb.SprtCallResult, field).offset,
+                           ctypes.POINTER(ctypes.c_void_p))
+        texts.append(None if not slot[0] else ctypes.string_at(slot[0]).decode())
+        if slot[0]:
+            jb._libc.free(ctypes.c_void_p(slot[0]))
+            slot[0] = None
+    return rc, [res.handles[i] for i in range(res.n_handles)], texts[0], res.error_row, texts[1]
+
+
+def same_buffers(a, b) -> bool:
+    """Exact equality of two columns, tables or nested columns: dtype,
+    data, validity, offsets and children."""
+    if type(a) is not type(b):
+        return False
+    if hasattr(a, "columns"):
+        return len(a.columns) == len(b.columns) and all(
+            same_buffers(x, y) for x, y in zip(a.columns, b.columns))
+    for f in ("dtype", "names"):
+        if getattr(a, f, None) != getattr(b, f, None):
+            return False
+    for f in ("data", "validity", "offsets"):
+        x, y = getattr(a, f, None), getattr(b, f, None)
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+            return False
+    kids = [getattr(a, "child", None)] + list(getattr(a, "children", ()))
+    others = [getattr(b, "child", None)] + list(getattr(b, "children", ()))
+    return len(kids) == len(others) and all(
+        (x is None and y is None) or same_buffers(x, y) for x, y in zip(kids, others))
+
+
+def jni_phase(counters, card, ss_path, q1_ctx, full):
+    """Phase 30: the JNI dispatch at SF10 widths. Builds the port's JNI
+    library (``sprt_jni``), registers the port's backend through
+    ``register()`` and again through ``sprt_embed_python(NULL,
+    bootstrap_source())`` on the same library, then drives every op
+    family through the C pointer on tensors already on the card, each
+    exact against the direct port call on the same inputs: the casts,
+    from_json and Regex over one row group of phase 12's store_sales
+    file, the decimal ops over one q1 batch, row conversion and ZOrder
+    over rung 1's lineitem batch, the rmm task ops around a forced retry,
+    the profiler ops and one ANSI cast error. Per op, the dispatch ms
+    against the direct call; at the end every handle is released."""
+    import ctypes
+
+    from spark_rapids_jni_tpu_torch import FLOAT64, INT32, INT64, STRING, Column, Table
+    from spark_rapids_jni_tpu_torch.api import ParquetReader
+    from spark_rapids_jni_tpu_torch.kernels import _build
+    from spark_rapids_jni_tpu_torch.ops import cast_string, decimal, map_utils, regex
+    from spark_rapids_jni_tpu_torch.ops import row_conversion, zorder
+    from spark_rapids_jni_tpu_torch.runtime import errors, events, metrics, resource
+    from spark_rapids_jni_tpu_torch.runtime import jni_backend as jb
+
+    t0 = time.perf_counter()
+    lib = jb.register()
+    build_s = time.perf_counter() - t0
+    kept = len(jb._KEEPALIVE)
+    rc = lib.sprt_embed_python(None, jb.bootstrap_source().encode())
+    if rc != 0 or len(jb._KEEPALIVE) != kept + 2:
+        raise AssertionError(f"sprt_embed_python(NULL, bootstrap) returned {rc}; "
+                             f"{len(jb._KEEPALIVE) - kept} objects registered")
+    lib.sprt_get_backend.restype = ctypes.POINTER(jb.SprtBackend)
+    backend = lib.sprt_get_backend()
+    reg = jb.REGISTRY
+    if len(reg):
+        raise AssertionError(f"the handle registry holds {len(reg)} handles before the phase")
+    handles = []
+
+    def put(obj):
+        h = reg.put(obj)
+        handles.append(h)
+        return h
+
+    def call(op, *args):
+        rc, out, err, _row, _s = jni_dispatch(backend, op, args)
+        if rc != 0:
+            raise AssertionError(f"jni {op} failed through the C dispatch: {err}")
+        if op not in jb.SCALAR_OPS:
+            handles.extend(out)
+        return out
+
+    for name in counters:
+        counters[name].launches = 0
+    with ParquetReader(ss_path) as r:
+        c = r.read_row_group(0).columns  # store, quantity, price, attrs JSON
+    q1 = q1_ctx["tables"][0]
+    a = widen(q1.columns[3].data, 12)  # l_extendedprice as DECIMAL128(12,2)
+    b = widen(100 - q1.columns[4].data, 13)  # 1 - l_discount as (13,2)
+    keys = [full.columns[i] for i in ZORDER_KEYS]
+    ids = [Column.from_numpy(range_ids(k.data.cpu().numpy()), INT32) for k in keys]
+    # the from_rows schema by cudf type id: INT64 4, INT32 3 (DATE32
+    # rows decode as INT32), DECIMAL64 26 at scale -2
+    tids = {("int", 64): 4, ("int", 32): 3, ("date", 32): 3, ("decimal", 64): 26}
+    type_ids = [tids[(col.dtype.kind, col.dtype.bits)] for col in full.columns]
+    scales = [-2 if t == 26 else 0 for t in type_ids]
+    schema = [jb._dtype_from_id(t, s) for t, s in zip(type_ids, scales)]
+    direct_rows = row_conversion.convert_to_rows(full)
+    qty_h, price_h, json_h = put(c[1]), put(c[2]), put(c[3])
+    a_h, b_h, full_h = put(a), put(b), put(full)
+    rows_h, key_hs, id_hs = put(direct_rows[0]), [put(k) for k in keys], [put(i) for i in ids]
+    cases = [
+        ("cast.to_integer", [qty_h, 0, 1, 3],
+         lambda: cast_string.string_to_integer(c[1], INT32, ansi_mode=False, strip=True)),
+        ("cast.to_decimal", [price_h, 0, 1, 9, 2],
+         lambda: cast_string.string_to_decimal(c[2], 9, 2, ansi_mode=False, strip=True)),
+        ("cast.to_float", [price_h, 0, 10],
+         lambda: cast_string.string_to_float(c[2], FLOAT64, ansi_mode=False)),
+        ("map_utils.from_json", [json_h], lambda: map_utils.from_json(c[3])),
+        ("regex.rlike", [json_h, *jb.pack_string(JNI_RLIKE)], lambda: regex.rlike(c[3], JNI_RLIKE)),
+        ("regex.extract", [json_h, 1, *jb.pack_string(JNI_EXTRACT)],
+         lambda: regex.regexp_extract(c[3], JNI_EXTRACT, 1)),
+        ("decimal.multiply128", [a_h, b_h, 4], lambda: decimal.multiply128(a, b, 4)),
+        ("decimal.add128", [a_h, b_h, 2], lambda: decimal.add128(a, b, 2)),
+        ("decimal.subtract128", [a_h, b_h, 2], lambda: decimal.subtract128(a, b, 2)),
+        ("decimal.divide128", [a_h, b_h, 6, 0], lambda: decimal.divide128(a, b, 6)),
+        ("row_conversion.to_rows", [full_h], lambda: row_conversion.convert_to_rows(full)),
+        ("row_conversion.from_rows", [rows_h, *type_ids, *scales],
+         lambda: row_conversion.convert_from_rows([direct_rows[0]], schema)),
+        ("zorder.interleave_bits", key_hs, lambda: zorder.interleave_bits(Table(keys))),
+        ("zorder.hilbert_index", [ZORDER_HILBERT_BITS, *id_hs],
+         lambda: zorder.hilbert_index(ZORDER_HILBERT_BITS, Table(ids))),
+    ]
+
+    def outputs(op, direct):
+        if op == "row_conversion.to_rows":
+            return list(direct)
+        if op.startswith("decimal."):
+            return list(direct.columns)
+        return [direct]
+
+    def dispatch_only(op, args):
+        def run():
+            rc, out, err, _row, _s = jni_dispatch(backend, op, args)
+            if rc != 0:
+                raise AssertionError(f"jni {op}: {err}")
+            for h in out:
+                reg.release(h)
+        return run
+
+    timing = {}
+    for op, args, direct in cases:
+        got = [reg.get(h) for h in call(op, *args)]
+        want = outputs(op, direct())
+        torch.cuda.synchronize()
+        if len(got) != len(want) or not all(same_buffers(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"jni {op} differs from the direct port call")
+        d_ms = host_ms(dispatch_only(op, args), 3)
+        p_ms = host_ms(direct, 3)
+        timing[op] = {"rows": len(want[0]) if hasattr(want[0], "__len__") else None,
+                      "dispatch_ms": d_ms, "direct_ms": p_ms, "overhead_ms": d_ms - p_ms}
+        print(f"jni {op}: exact; dispatch {d_ms:.3f} ms, direct {p_ms:.3f} ms "
+              f"(median of 3, host clock); card: {card}", flush=True)
+    # the round trip through the C dispatch gives rung 1's columns back
+    rt = reg.get(call("row_conversion.from_rows", call("row_conversion.to_rows", full_h)[0],
+                      *type_ids, *scales)[0])
+    for i, (src, col) in enumerate(zip(full.columns, rt.columns)):
+        if not torch.equal(src.data, col.data):
+            raise AssertionError(f"jni row round trip differs at column {i}")
+
+    # the bare cost of one dispatch: a scalar op, no device work
+    n_calls = 2000
+    t = time.perf_counter()
+    for _ in range(n_calls):
+        jni_dispatch(backend, "test.row_count", [qty_h])
+    per_call_us = (time.perf_counter() - t) / n_calls * 1e6
+    t = time.perf_counter()
+    for _ in range(n_calls):
+        len(reg.get(qty_h))
+    direct_us = (time.perf_counter() - t) / n_calls * 1e6
+
+    # rmm: the task ops around a forced retry of the q1 Pipeline
+    tid = 3_000_001
+    call("rmm.start_task", tid)
+    call("rmm.force_retry_oom", tid, 1, 0)
+    if q1_rows(q1_pipeline("jni_rmm").run(q1)) != q1_ctx["want"][0]:
+        raise AssertionError("jni rmm: the retried q1 batch differs from the oracle")
+    m = resource.metrics(tid)
+    want_rmm = [m.num_retry_throw, m.retries, m.injected_ooms, m.peak_bytes]
+    got_rmm = [call("rmm.get_and_reset_num_retry", tid)[0]] + [
+        call("rmm.metric", tid, k)[0] for k in (0, 1, 2)]
+    call("rmm.task_done", tid)
+    if got_rmm != want_rmm or got_rmm[2] != 1 or got_rmm[1] < 1:
+        raise AssertionError(f"jni rmm: dispatch {got_rmm}, direct {want_rmm}")
+
+    # profiler: enable, reset, one Pipeline run, read back, dump, disable
+    prev_mode = metrics.configure("off")
+    try:
+        call("profiler.enable")
+        call("profiler.reset")
+        q1_pipeline("jni_profiled").run(q1)
+        name = "Pipeline.jni_profiled"
+        st = metrics.timer_stats(f"op.{name}")
+        want_prof = [metrics.counter_value(f"op.{name}.calls"), st["count"],
+                     int(round(st["sum_ms"])), len(events.events())]
+        got_prof = [call("profiler.counter", *jb.pack_string(f"op.{name}.calls"))[0],
+                    call("profiler.op_count", *jb.pack_string(name))[0],
+                    call("profiler.op_time_ms", *jb.pack_string(name))[0],
+                    call("profiler.event_count")[0]]
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        dump = os.path.join(ROOT, "build", "chip_smoke_jni_profile.jsonl")
+        n_lines = call("profiler.dump", *jb.pack_string(dump))[0]
+        with open(dump) as f:
+            on_disk = sum(1 for _ in f)
+        os.remove(dump)
+        call("profiler.disable")
+        disabled = not metrics.enabled()
+    finally:
+        metrics.configure(prev_mode)
+    if got_prof != want_prof or want_prof[:2] != [1, 1] or n_lines != on_disk or not disabled:
+        raise AssertionError(f"jni profiler: dispatch {got_prof}, direct {want_prof}, dump "
+                             f"{n_lines} lines ({on_disk} on disk), disabled {disabled}")
+
+    # one ANSI cast error: its row and string cross the C struct
+    offs = c[1].offsets.cpu()
+    bad_row = (2 * len(c[1])) // 3
+    data = c[1].data.clone()
+    data[int(offs[bad_row])] = ord("x")
+    bad = Column(STRING, data, c[1].validity, c[1].offsets)
+    try:
+        cast_string.string_to_integer(bad, INT64, ansi_mode=True, strip=True)
+    except errors.CastException as e:
+        want_err = (e.row_with_error, e.string_with_error)
+    else:
+        raise AssertionError("jni ANSI: the direct cast did not raise")
+    rc, _, err, err_row, err_str = jni_dispatch(backend, "cast.to_integer", [put(bad), 1, 1, 4])
+    if rc != 1 or (err_row, err_str) != want_err or want_err[0] != bad_row:
+        raise AssertionError(f"jni ANSI: rc {rc}, row {err_row}, string {err_str!r}; "
+                             f"direct {want_err}")
+
+    for h in handles:
+        call("handle.release", h)
+    if len(reg):
+        raise AssertionError(f"{len(reg)} handles left after handle.release of every handle")
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    print(f"jni: {len(cases) + 15} ops exact through the C pointer of "
+          f"{os.path.basename(_build.library_path('sprt_jni'))} (built or loaded in "
+          f"{build_s:.2f} s; registered by register() and by sprt_embed_python); one dispatch "
+          f"{per_call_us:.2f} us against {direct_us:.2f} us direct (test.row_count, mean of "
+          f"{n_calls}); rmm {json.dumps(got_rmm)}; profiler {json.dumps(got_prof)}, dump "
+          f"{n_lines} lines; ANSI error row {err_row} {err_str!r}; {len(handles)} handles "
+          f"released, registry empty; kernel launches {json.dumps(launches)}; card: {card}",
+          flush=True)
+    print(f"jni timing: {json.dumps(timing)}", flush=True)
+    return launches
+
+
+def faultinj_phase(counters, card, ss_path, q1_ctx, q5_ctx):
+    """Phase 31: the runtime-boundary injector (runtime/faultinj_pjrt.py)
+    over paths that launch murmur3: (a) retry_oom at ``pjrt.execute``
+    (skipCount 2, interceptionCount 1) under resource.task around phase
+    27's mesh join (its group-by hashes q1's string keys by the plain
+    chain and launches no kernel), retried and exact; (b) a fatal
+    ``pjrt.execute`` that reaches the caller unretried, then the same
+    run exact after uninstall; (c) status 700 at ``pjrt.transfer``
+    during a ScanPlan prefetch over phase 12's file, raised on a scan
+    thread and delivered to the consumer; (d) an assert at
+    ``pjrt.compile`` on a cold q1 plan, raised at its
+    ``CUDAGraph.capture_begin``: Pipeline.run raises, no half-built
+    plan is cached, and the run after uninstall is exact."""
+    import traceback
+
+    from spark_rapids_jni_tpu_torch.api import Join, ScanPlan, prefetch_chunks
+    from spark_rapids_jni_tpu_torch.kernels import _build
+    from spark_rapids_jni_tpu_torch.runtime import faultinj, resource
+    from spark_rapids_jni_tpu_torch.runtime import faultinj_pjrt as fp
+    from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
+
+    mesh = card_mesh()
+    li, sup = q5_ctx["lineitem0"], q5_ctx["supplier"]
+    want = sorted_table_bytes(Join.join(li, sup, [1], [0]))
+    bucket = li.num_rows // mesh.size // mesh.size
+
+    def join():
+        return sorted_table_bytes(resource.join(
+            li, sup, [1], [0], mesh, shuffle_capacity=3 * bucket // 4,
+            out_capacity=li.num_rows // mesh.size // 8))
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cfg = os.path.join(ROOT, "build", "chip_smoke_pjrt_faults.json")
+
+    def arm(op, rule):
+        with open(cfg, "w") as f:
+            json.dump({"opFaults": {op: rule}}, f)
+        fp.install(cfg)
+
+    loaded = sorted(_build._LIBS)  # what the earlier phases loaded
+    for name in counters:
+        counters[name].launches = 0
+    res = {}
+    try:
+        # (a) a retryable OOM at the third crossing of pjrt.execute (a
+        # kernel launch, a graph replay or an eager plan run), retried
+        arm("pjrt.execute", {"injectionType": "retry_oom", "skipCount": 2,
+                             "interceptionCount": 1})
+        with resource.task() as task:
+            got = join()
+        res["a"] = {"retries": task.metrics.retries, "injected": task.metrics.injected_ooms}
+        if got != want or task.metrics.injected_ooms != 1 or task.metrics.retries < 1:
+            raise AssertionError(f"faultinj (a): {json.dumps(res['a'])}, exact {got == want}")
+
+        # (b) a fatal fault reaches the caller and is not retried
+        arm("pjrt.execute", {"injectionType": "fatal"})
+        try:
+            with resource.task() as task:
+                join()
+        except faultinj.FatalDeviceError:
+            res["b"] = {"raised": "FatalDeviceError", "retries": task.metrics.retries}
+        else:
+            raise AssertionError("faultinj (b): no FatalDeviceError")
+        fp.uninstall()
+        with resource.task():
+            if join() != want or res["b"]["retries"] != 0:
+                raise AssertionError(f"faultinj (b): {json.dumps(res['b'])} or the run "
+                                     "after uninstall differs")
+
+        # (c) status 700 at a transfer on a scan thread, delivered in order
+        arm("pjrt.transfer", {"injectionType": "status", "substituteReturnCode": 700,
+                              "interceptionCount": 1})
+        delivered, frames = 0, []
+        with ScanPlan(ss_path, columns=SS_COLUMNS) as plan:
+            gen = prefetch_chunks(plan, depth=2, workers=2)
+            try:
+                for _ in gen:
+                    delivered += 1
+            except faultinj.InjectedStatusError as e:
+                res["c"] = {"code": e.code, "chunks_before": delivered}
+                frames = [f.name for f in traceback.extract_tb(e.__traceback__)]
+            finally:
+                gen.close()
+        if res.get("c", {}).get("code") != 700 or "_work" not in frames or delivered > 1:
+            raise AssertionError(f"faultinj (c): {res.get('c')}, frames {frames}")
+        fp.uninstall()
+
+        # (d) an assert at the cold plan's capture: nothing cached. install
+        # forgets the loaded libraries, so they are fetched again through
+        # the seams before the rule is armed, and the first pjrt.compile
+        # crossing left is the capture
+        release_plans()
+        fp.install()
+        for name in loaded:
+            _build.load(name)
+        arm("pjrt.compile", {"injectionType": "assert"})
+        frames = []
+        try:
+            q1_pipeline("faultinj_cold").run(q1_ctx["tables"][0])
+        except faultinj.DeviceAssertError as e:
+            res["d"] = {"raised": "DeviceAssertError", "cached_after": pl.plan_cache_size()}
+            frames = [f.line or "" for f in traceback.extract_tb(e.__traceback__)]
+        else:
+            raise AssertionError("faultinj (d): no DeviceAssertError")
+        fp.uninstall()
+        res["d"]["at_capture_begin"] = any("capture_begin(" in line for line in frames)
+        out = q1_pipeline("faultinj_cold").run(q1_ctx["tables"][0])
+        if (res["d"]["cached_after"] != 0 or not res["d"]["at_capture_begin"]
+                or q1_rows(out) != q1_ctx["want"][0]):
+            raise AssertionError(f"faultinj (d): {json.dumps(res['d'])} or the run after "
+                                 "uninstall differs")
+        res["d"]["cached_then"] = pl.plan_cache_size()
+    finally:
+        fp.uninstall()
+        faultinj.reset()
+        if os.path.exists(cfg):
+            os.remove(cfg)
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    print(f"faultinj (runtime boundary): {json.dumps(res)}; every result exact; kernel "
+          f"launches {json.dumps(launches)}; card: {card}", flush=True)
+    return launches
+
 
 
 def main() -> int:
@@ -5029,20 +5458,34 @@ def main() -> int:
             counters, card, q1_ctx, q5_ctx)["murmur3_chain"]
         phase_done("28 sharded stream")
 
-        # ---- 29. four tenants through the serving driver, counted
+        # ---- 29. four tenants through the serving driver, counted; the
+        # plans of phases 21-28 are not used again: their graphs and the
+        # allocator's cached blocks go before the tenants lay out their data
+        # (a work-around: the plan cache does not bound its graphs' bytes)
+        release_plans()
         launches["serving"] = serving_phase(
             counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp)["murmur3_chain"]
-        del q1_ctx, q5_ctx
         phase_done("29 serving")
+
+        # ---- 30. the JNI dispatch over the port's JNI library, counted
+        launches["jni"] = jni_phase(counters, card, ss_path, q1_ctx, full)["murmur3_chain"]
+        phase_done("30 jni dispatch")
+
+        # ---- 31. the runtime-boundary fault injector, counted
+        launches["faultinj"] = faultinj_phase(
+            counters, card, ss_path, q1_ctx, q5_ctx)["murmur3_chain"]
+        del q1_ctx, q5_ctx
+        phase_done("31 runtime-boundary faults")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    on_exchange = ("rung 1", "q5_exchange", "mesh_executors", "sharded_stream", "serving")
+    on_exchange = ("rung 1", "q5_exchange", "mesh_executors", "sharded_stream", "serving",
+                   "faultinj")
     for path, count in launches.items():
         if (count >= 1) != (path in on_exchange):
             raise AssertionError(f"murmur3 launches on the {path} path: {count}")
 
-    # ---- 30. kernel numbers, card, verdict
+    # ---- 32. kernel numbers, card, verdict
     k = timings["keys"]
     print(json.dumps({"kernels": [{
         "name": "murmur3_chain",

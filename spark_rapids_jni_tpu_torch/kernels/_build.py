@@ -13,7 +13,15 @@ the host C++ compiler; ``native/``'s own Makefile is not used:
   ``native/thrift_compact.hpp``). The page decoder includes ``<zlib.h>``
   and, when present, ``<zstd.h>``; ``host_libraries`` probes how this
   machine provides them (``describe_host_libraries`` says which branch
-  was taken).
+  was taken);
+- ``sprt_jni``: the JNI dispatch library, the counterpart of the
+  Makefile's ``jni`` target without its PJRT half: ``native/jni/``'s
+  dispatch table, its ten ``*Jni.cpp`` bindings, ``embed_python.cpp``
+  and ``native/parquet_footer.cpp``, compiled against
+  ``native/jni/jni_stub`` and linked with ``-ldl``. ``pjrt_backend.cpp``
+  and ``pjrt/pjrt_executor.cpp`` need the PJRT C API header of an XLA
+  install, so the port leaves them out and defines their one symbol in
+  ``csrc/host/pjrt_absent.cpp``.
 
 Libraries land in ``build/spark_rapids_jni_tpu_torch/`` beside the
 package, named by a hash of the sources, headers and flags, so an edited
@@ -53,7 +61,27 @@ HOST_SOURCES = {
         os.path.join(_NATIVE, "parquet_pages.cpp"),
     ),
 }
-HOST_HEADERS = {"sparkpf": (os.path.join(_NATIVE, "thrift_compact.hpp"),)}
+_JNI = os.path.join(_NATIVE, "jni")
+_JNI_BINDINGS = (
+    "CastStringsJni.cpp", "DecimalUtilsJni.cpp", "MapUtilsJni.cpp", "RowConversionJni.cpp",
+    "ZOrderJni.cpp", "ParquetFooterJni.cpp", "RegexJni.cpp", "TestSupportJni.cpp",
+    "RmmSparkJni.cpp", "ProfilerJni.cpp",
+)
+HOST_SOURCES["sprt_jni"] = (
+    os.path.join(_JNI, "dispatch.cpp"),
+    *(os.path.join(_JNI, f) for f in _JNI_BINDINGS),
+    os.path.join(_JNI, "embed_python.cpp"),
+    os.path.join(_NATIVE, "parquet_footer.cpp"),
+    os.path.join(SRC_DIR, "host", "pjrt_absent.cpp"),
+)
+HOST_HEADERS = {
+    "sparkpf": (os.path.join(_NATIVE, "thrift_compact.hpp"),),
+    "sprt_jni": (
+        os.path.join(_JNI, "sprt_jni_common.hpp"),
+        os.path.join(_JNI, "jni_stub", "jni.h"),
+        os.path.join(_NATIVE, "thrift_compact.hpp"),
+    ),
+}
 HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 # zlib's declarations for a machine with libz.so.1 but no zlib.h
 HOST_INCLUDE = os.path.join(SRC_DIR, "host_include")
@@ -179,6 +207,8 @@ def _flags(name: str):
     """(flags before the sources, flags after them) of library ``name``."""
     if name not in HOST_SOURCES:
         return NVCC_FLAGS, ()
+    if name == "sprt_jni":
+        return HOST_FLAGS + ("-I", os.path.join(_JNI, "jni_stub")), ("-ldl",)
     if name != "sparkpf":
         return HOST_FLAGS, ()
     libs = host_libraries().values()
@@ -243,3 +273,11 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             _LIBS[name] = lib
         return lib
+
+
+def forget_loaded() -> None:
+    """Forget the loaded libraries: the next ``load`` of each fetches it
+    again through ``build`` (which finds it built). The runtime-boundary
+    fault injector calls this, so every library re-enters its seam."""
+    with _LOCK:
+        _LIBS.clear()

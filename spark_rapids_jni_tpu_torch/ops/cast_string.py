@@ -147,6 +147,7 @@ def _parse_integer(chars, lengths, in_valid, bits, ansi, strip):
     return mag, negative, valid
 
 
+# sprtcheck: host-side — reads one row's bytes for the CastException message, after the cast
 def _row_string(col: Column, row: int) -> str:
     """Fetch one row's string with an O(row-length) transfer."""
     o0 = int(col.offsets[row])
@@ -154,6 +155,7 @@ def _row_string(col: Column, row: int) -> str:
     return bytes(col.data[o0:o1].cpu().numpy()).decode("utf-8", errors="replace")
 
 
+# sprtcheck: host-side — the ANSI error report: finds the first bad row after the cast
 def _raise_first_error(col: Column, bad: torch.Tensor):
     """ANSI mode: find the first bad row and raise CastException with
     the offending string (cast_string.cu validate_ansi_column:601-634,

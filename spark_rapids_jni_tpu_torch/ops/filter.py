@@ -23,5 +23,7 @@ def filter_table(table: Table, predicate: Column | torch.Tensor) -> Table:
         raise ValueError(f"predicate has {mask.shape[0]} rows, table {table.num_rows}")
     # size staging: one deliberate host sync (the kept count sizes the
     # index list), as in the JAX package's filter_table
+    # a Pipeline filter stage keeps a static capacity instead
+    # sprtcheck: disable=graph-capture-sync — the eager filter's size staging
     idx = torch.nonzero(mask).squeeze(1)
     return gather(table, idx)

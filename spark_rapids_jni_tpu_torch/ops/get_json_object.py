@@ -377,6 +377,8 @@ def get_json_object(
                 f"pass out_width >= {in_w} (or omit it)"
             )
     else:
+        # a Pipeline stage always passes out_width
+        # sprtcheck: disable=graph-capture-sync — no out_width: sized on the host
         W = bucket_length(max(int(out_len.max()), 1))
     out_len = torch.clamp(out_len, max=W)
     vchars = _scans.funnel_align(chars, out_start, W, length=out_len)

@@ -117,6 +117,8 @@ def _pair_key_operands(left, right, left_on, right_on, left_mats=None, right_mat
             else:
                 longest = [c.string_lengths().max() for c in (lc, rc) if len(c)]
                 # host sync: the pair's longest string sizes the matrices
+                # a Pipeline join stage passes matrices at its pinned widths
+                # sprtcheck: disable=graph-capture-sync — only without matrices
                 width = int(torch.stack(longest).max()) if longest else 1
                 L = strs.bucket_length(max(width, 1))
                 mats = (strs.to_char_matrix(lc, L), strs.to_char_matrix(rc, L))
@@ -299,6 +301,7 @@ def _unmatched_build_rows(matched, right_sorted_idx, m: int) -> torch.Tensor:
     return counts[:m] == 0
 
 
+# sprtcheck: host-side — the eager join; a Pipeline join stage runs join_padded
 def join(
     left: Table,
     right: Table,

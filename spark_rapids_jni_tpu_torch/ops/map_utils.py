@@ -406,6 +406,7 @@ def _gather_pairs(chars, colon, k_start, k_len, v_start, v_len, v_kind, P, Lk, L
     return span(ks, kl, Lk), kl, span(vs, vl, Lv), vl, vk, prow
 
 
+# sprtcheck: host-side — from_json's string pack runs at collect, after the device pass
 def _pack_kv(kchars, klen, vchars, vlen, P: int):
     """ONE pack for the key and value matrices and the split back into
     two string columns. Key rows go first, so the key payload is a byte
@@ -491,6 +492,7 @@ def _snippet(raw: np.ndarray) -> str:
     return text if len(text) <= 200 else text[:200] + "..."
 
 
+# sprtcheck: host-side — the collect of a Pipeline's from_json terminal stage, after the graph
 def assemble_from_json(pieces) -> ListColumn:
     """Assembly of ``from_json_traced`` pieces into the
     List<Struct<String,String>> result: one small host sync reads the
@@ -518,6 +520,7 @@ def assemble_from_json(pieces) -> ListColumn:
     return ListColumn(pieces["list_offsets"], child, validity)
 
 
+# sprtcheck: host-side — builds the JsonParsingException message of a failed row
 def _raise_at_row(col: Column, row: int):
     """Raise with the offending row's text, copying just that row's bytes
     (the reference prints +-100 chars the same way, map_utils.cu:
@@ -537,6 +540,8 @@ def _empty_child(device) -> StructColumn:
     return StructColumn((_empty_strings(device), _empty_strings(device)), names=("key", "value"))
 
 
+# A Pipeline runs from_json_traced in its graph and assembles at collect.
+# sprtcheck: host-side — the eager entry
 def from_json(col: Column) -> ListColumn:
     """Extract top-level key/value raw-substring pairs from a JSON
     strings column; returns List<Struct<String,String>> (map_utils.cu

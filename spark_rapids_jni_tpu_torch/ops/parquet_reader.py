@@ -459,6 +459,7 @@ def _concat(parts):
     offs, base = [first.offsets[:1]], 0
     for p in parts:
         offs.append(p.offsets[1:] + base)
+        # sprtcheck: disable=graph-capture-sync — host ingress, before any chain runs
         base += int(p.offsets[-1])
     return ListColumn(torch.cat(offs), _concat([p.child for p in parts]), validity)
 

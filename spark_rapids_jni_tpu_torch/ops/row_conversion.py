@@ -156,11 +156,13 @@ def _plan_batches(row_sizes: np.ndarray, max_batch_bytes: int) -> List[slice]:
     return batches
 
 
+# sprtcheck: host-side — the host view of a row batch (host codec, tests)
 def row_batch_bytes(col: Column) -> np.ndarray:
     """Host-side JCUDF bytes of one row-batch column."""
     return col.data.cpu().numpy().view(np.uint8)
 
 
+# sprtcheck: host-side — a façade entry, never a Pipeline stage: the row bytes size the batches
 def convert_to_rows(
     table: Table, max_batch_bytes: int = DEFAULT_MAX_BATCH_BYTES
 ) -> List[Column]:
@@ -260,6 +262,7 @@ def _decode_fixed(rows: torch.Tensor, schema: tuple, layout: RowLayout):
     return cols, validity
 
 
+# sprtcheck: host-side — a façade entry, never a Pipeline stage: the longest row sizes the decode
 def _from_rows_single(rc: Column, schema: tuple, layout: RowLayout) -> Table:
     n = len(rc)
     data = rc.data.view(torch.uint8) if rc.data.dtype != torch.uint8 else rc.data
@@ -291,6 +294,7 @@ def _from_rows_single(rc: Column, schema: tuple, layout: RowLayout) -> Table:
     return Table(out)
 
 
+# sprtcheck: host-side — joins row batches on the host side of the façade
 def _concat_col(cs: List[Column]) -> Column:
     """Concatenate the parts of one column: a mask only when some part
     has one (the others count as all valid), offsets rebased."""

@@ -868,6 +868,7 @@ def distributed_sort(
 
 
 
+# sprtcheck: host-side — a collect: one batched read of the null counts, after the program
 def compact_validity(table: Table, invalid_counts: Optional[Sequence[int]] = None) -> Table:
     """Drop all-True validity masks (the JAX package's
     ``Table.compact_validity``). ``invalid_counts`` — the null count of
@@ -1015,6 +1016,7 @@ def _count_transfer(nbytes: int) -> None:
         _metrics.counter("collect.bytes_transferred").inc(int(nbytes))
 
 
+# sprtcheck: host-side — the host compaction of a collected result
 def _host_compact(result: Table, occupied) -> Table:
     """The retained host-compaction path: every plane moves to the host
     whole, the live rows compact there with numpy, and the dense Table
@@ -1078,6 +1080,7 @@ def collect_table(result, occupied=None, overflow=None, n_dev: Optional[int] = N
     return collect_group_by(result, occupied, overflow, n_dev=n_dev)
 
 
+# sprtcheck: host-side — a collect: one batched transfer of the counts, after the program
 def collect_group_by(result, occupied, overflow=None, n_dev: Optional[int] = None) -> Table:
     """Compact a padded result into a dense Table (one sync). Raises if
     ``overflow`` (an int tensor, or a per-stage dict of them) is

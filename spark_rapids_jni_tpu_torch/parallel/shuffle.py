@@ -331,6 +331,7 @@ def _wire_pin_planes(st: ShardedTable, arrays, slots, wire_widths, occupied, tru
     return arrays, wire_casts, trunc
 
 
+# sprtcheck: host-side — its callers run it only outside a fused chain (not fused())
 def _global_max(mesh: Mesh, parts) -> int:
     """Max over every shard's int tensor (0 when all are empty): one
     host read."""

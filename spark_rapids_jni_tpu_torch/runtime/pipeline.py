@@ -80,6 +80,7 @@ import numpy as np
 import torch
 
 from . import events as _events
+from . import faultinj as _faultinj
 from . import metrics as _metrics
 from . import resource as _resource
 from . import spans as _spans
@@ -775,6 +776,7 @@ def _array_hash_evict(key: int) -> None:
         _array_hash_cache.pop(key, None)
 
 
+# sprtcheck: host-side — digests a stage's constant for the plan key, before any capture
 def _tensor_digest(t: torch.Tensor) -> str:
     """Content hash of a tensor computed ON ITS DEVICE: its bytes as
     int64 lanes times two fixed pseudo-random weight vectors, summed
@@ -1148,6 +1150,11 @@ def _graph_pool(dev) -> list:
         return got
 
 
+# the faults runtime/faultinj*.py inject, which a capture passes through
+_INJECTED_FAULTS = (_faultinj.FatalDeviceError, _faultinj.DeviceAssertError,
+                    _faultinj.InjectedStatusError, _faultinj.RetryOOMInjected)
+
+
 class _GraphProgram:
     """The padded chain captured once as a CUDA graph over static input
     buffers — the chunk's tensors and the join build tables' both. A
@@ -1190,6 +1197,8 @@ class _GraphProgram:
                         out = fn(static_chunk, static_sides)
                     finally:
                         self._graph.capture_end()
+            except _INJECTED_FAULTS:
+                raise  # an injected fault is the caller's to see, not a capture break
             except Exception as e:
                 i = where.get("stage")
                 label = labels[i] if i is not None and i < len(labels) else "?"
@@ -1234,6 +1243,7 @@ class _Pending:
         else:
             self.host, self.event = tail, None
 
+    # sprtcheck: host-side — the retire-side wait for a chunk's one transfer
     def values(self) -> List[int]:
         if self.event is not None:
             self.event.synchronize()
@@ -2208,6 +2218,7 @@ class Pipeline:
                 tail, layout = _tail_vector(st, dev)
                 return table2, live, nested, tail, layout
 
+            # sprtcheck: host-side — ANALYZE's retire half: stage waits and the transfer
             def sync(value):
                 probes = holder.pop("probes", None) or []
                 marks = holder.pop("marks", None) or []

@@ -230,9 +230,27 @@ SERVING_SLICE_MODULES = [
     ("spark_rapids_jni_tpu_torch.api", "serving_server"),
 ]
 
+# The modules of the boundary slice (the JNI dispatch backend, the
+# runtime-boundary fault injector) and the port's own analyzer, imported
+# the same way.
+BOUNDARY_SLICE_MODULES = [
+    ("spark_rapids_jni_tpu_torch.runtime.jni_backend", "register"),
+    ("spark_rapids_jni_tpu_torch.runtime.jni_backend", "bootstrap_source"),
+    ("spark_rapids_jni_tpu_torch.runtime.faultinj_pjrt", "install"),
+    ("spark_rapids_jni_tpu_torch.kernels._build", "forget_loaded"),
+    ("spark_rapids_jni_tpu_torch.analysis", "analyze"),
+    ("spark_rapids_jni_tpu_torch.analysis.core", "RULES"),
+    ("spark_rapids_jni_tpu_torch.analysis.pyast", "device_tainted_names"),
+    ("spark_rapids_jni_tpu_torch.analysis.__main__", "main"),
+    ("spark_rapids_jni_tpu_torch.analysis.rules.dispatch_purity", "dispatch_sync_free"),
+    ("spark_rapids_jni_tpu_torch.analysis.rules.dtype_discipline", "implicit_float_dtype"),
+    ("spark_rapids_jni_tpu_torch.analysis.rules.capture_safety", "graph_capture_sync"),
+]
+
 IMPORT_CASES = ([(m, None) for m in Q1_SLICE_MODULES] + Q5_SLICE_MODULES
                 + STORE_SALES_SLICE_MODULES + STRING_LAYER_MODULES + SCAN_REGEX_ZORDER_MODULES
-                + PIPELINE_SLICE_MODULES + EXCHANGE_SLICE_MODULES + SERVING_SLICE_MODULES)
+                + PIPELINE_SLICE_MODULES + EXCHANGE_SLICE_MODULES + SERVING_SLICE_MODULES
+                + BOUNDARY_SLICE_MODULES)
 
 # One interpreter imports every module in turn with the forbidden
 # packages blocked, and reports per (module, attr): whether the import
@@ -460,4 +478,9 @@ def test_make_mesh_default_is_cuda():
 
 @pytest.mark.parametrize("module,attr", SERVING_SLICE_MODULES)
 def test_serving_slice_module_imports_without_jax(import_report, module, attr):
+    _check_import(import_report, module, attr)
+
+
+@pytest.mark.parametrize("module,attr", BOUNDARY_SLICE_MODULES)
+def test_boundary_slice_module_imports_without_jax(import_report, module, attr):
     _check_import(import_report, module, attr)

@@ -88,14 +88,26 @@ def _bundle(root):
 
 
 def _busy_thread(seconds, op="spin"):
+    """A thread that spins ``op`` under a task for ``seconds`` from its
+    first pass, returned once it is inside its spin loop: an event set
+    from within ``run_plan:<op>`` is waited on, so a capture that
+    starts next cannot open before the stack it looks for exists."""
+    entered = threading.Event()
+
+    def body():
+        entered.set()
+        return sum(range(500))
+
     def run():
-        end = time.time() + seconds
         with resource.task():
+            resource.guard(op, body)
+            end = time.time() + seconds
             while time.time() < end:
-                resource.guard(op, lambda: sum(range(500)))
+                resource.guard(op, body)
 
     t = threading.Thread(target=run)
     t.start()
+    assert entered.wait(30), "the busy thread never entered its spin loop"
     return t
 
 
