@@ -348,6 +348,28 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def launch_medians(fn, loops=3, launches=25):
+    """The median ms of ``launches`` single launches of ``fn``, each
+    between its own pair of CUDA events, in each of ``loops`` separate
+    timing loops. A sleep queued ahead of each loop keeps the card from
+    reaching an event before the host has queued the launch behind it."""
+    for _ in range(3):
+        fn()
+    medians = []
+    for _ in range(loops):
+        evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+               for _ in range(launches)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)
+        for a, b in evs:
+            a.record()
+            fn()
+            b.record()
+        torch.cuda.synchronize()
+        medians.append(float(np.median([a.elapsed_time(b) for a, b in evs])))
+    return medians
+
+
 def host_ms(fn, reps=3):
     """Median host-clock ms of ``fn`` ending in a device sync, after one
     warm-up call."""
@@ -3884,6 +3906,7 @@ def q5_exchange_sf10(counters, card, ctx):
 
     w, v, plan = murmur3.table_plan(Table([li0.columns[0]]))
     k_ms = time_ms(lambda: murmur3.hash_planes(w, v, plan, 42), 50)
+    k_medians = launch_medians(lambda: murmur3.hash_planes(w, v, plan, 42))
     p_ms = time_ms(lambda: murmur3.hash_planes_plain(w, v, plan, 42), 10)
     k_bytes = 4 * w.numel() + v.numel() + 4 * w.shape[1]
     k_ops = w.shape[1] * (11 * w.shape[0] + 10 * len(plan))
@@ -3906,8 +3929,11 @@ def q5_exchange_sf10(counters, card, ctx):
           f"murmur3 launches {json.dumps(launches)} ({launches['murmur3_chain'] / len(lis):.2f} "
           f"per batch); kernel at the l_orderkey exchange shape ({w.shape[1]} rows, "
           f"{k_bytes} bytes): {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {k_bound:.4f} ms; "
+          f"medians of 25 launches in three loops {json.dumps(k_medians)} ms, "
+          f"{json.dumps([round(k_bound / m, 3) for m in k_medians])} of the bound; "
           f"card: {card}", flush=True)
-    return launches, {"ms": k_ms, "plain_ms": p_ms, "bound_ms": k_bound, "bytes": k_bytes,
+    return launches, {"ms": k_ms, "medians_ms": k_medians, "plain_ms": p_ms,
+                      "bound_ms": k_bound, "bytes": k_bytes,
                       "build": build, "build_live": build_live}
 
 
@@ -4498,23 +4524,40 @@ def tenant_stats(tenants, out, slices=None):
     return stats
 
 
-def release_plans():
-    """Drop every cached Pipeline plan, collect the released CUDA graphs
-    and return the allocator's cached blocks to the card, so the next
-    captures lay out their pools in unfragmented memory.
+def graph_cache_line(pl) -> dict:
+    """The plan cache's CUDA graphs: count, bytes as the bound counts
+    them, and the bound; fails when the bytes exceed the bound."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    got = {"graphs": sum(1 for r in pl.plan_cache_table() if r["form"] == "graph"),
+           "bytes": pl.graph_cache_bytes(dev), "bound": pl.graph_cache_bound(dev)}
+    if got["bound"] is not None and got["bytes"] > got["bound"]:
+        raise AssertionError(f"graph cache over its bound: {json.dumps(got)}")
+    return got
 
-    This works around a fault of the port, and is not how the port is
-    meant to be driven: the plan cache is bounded by a count of graphs
-    (``pipeline._GRAPH_CACHE_CAP``), not by their bytes, and admission
-    does not price the graphs' pools. Without it, a process that runs
-    phases 21-28's chains and then serves runs out of card memory in
-    phase 29 (35.83 GiB of 78.94 GiB held in graph pools)."""
-    from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
 
-    pl.plan_cache_clear()
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+def journal_evictions(path, t0, t1):
+    """The executable-cache evictions a journal recorded in [t0, t1]:
+    (count, bytes freed)."""
+    n = freed = 0
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if (rec.get("event") == "plan_cache_evict" and t0 <= rec["ts"] <= t1
+                    and rec["attrs"].get("table") == "executable"):
+                n += 1
+                freed += rec["attrs"].get("freed_bytes", 0)
+    return n, freed
+
+
+def serving_capacity(pl) -> int:
+    """Bytes the server may plan on: the card's free memory, the
+    allocator's free cached blocks outside the CUDA-graph pools, and
+    what the graph cache holds (admission takes that off again), less
+    SERVE_MARGIN."""
+    free, _total = torch.cuda.mem_get_info()
+    cached = sum(s["total_size"] - s["allocated_size"] for s in torch.cuda.memory_snapshot()
+                 if tuple(s["segment_pool_id"]) == (0, 0))
+    return free + cached + pl.graph_cache_bytes() - SERVE_MARGIN
 
 
 def serving_phase(counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp):
@@ -4539,16 +4582,22 @@ def serving_phase(counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp):
     from spark_rapids_jni_tpu_torch.runtime import diag, flight, metrics, sampler, trace, traceview
     from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
     from spark_rapids_jni_tpu_torch.serving import Server
+    from spark_rapids_jni_tpu_torch.serving.server import Job
 
+    # in the whole script phases 21-28's graphs are still cached: the
+    # byte bound, not a cleared cache, leaves the tenants their room
+    entry = graph_cache_line(pl)
+    print(f"serving entry: plan cache {json.dumps(entry)} (graphs, bytes, bound), graph "
+          f"bytes by pipeline {json.dumps([(r['pipeline'], r['graph_bytes'], r['pool_bytes']) for r in pl.plan_cache_table() if r['form'] == 'graph'])}; "
+          f"reserved {torch.cuda.memory_reserved()} allocated {torch.cuda.memory_allocated()}",
+          flush=True)
     tenants = serve_tenants(q1_ctx, q5_ctx, ss_path, ss_oracles)
     journal = os.path.join(tmp, "serving_journal.jsonl")
     prev_mode = metrics.configure(journal)
     port = diag.start(0)
     sampler.start(SAMPLER_HZ)
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    free, _total = torch.cuda.mem_get_info()
-    srv = serving_server(free - SERVE_MARGIN)
+    srv = serving_server(serving_capacity(pl))
     sessions = {name: srv.open_session(name) for name in tenants}
     servers = [srv]
     env_keys = (flight._ENV_VAR, flight.SLO_ENV_VAR)
@@ -4578,11 +4627,14 @@ def serving_phase(counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp):
         for name in counters:
             counters[name].launches = 0
         Server._slice = timed_slice
+        t_round = time.time()
         try:
             wall, out = serve_round(srv, sessions, tenants, during=lambda alive: scrape_during(
                 port, len(tenants), seen, alive))
         finally:
             Server._slice = orig_slice
+        evictions = journal_evictions(journal, t_round, time.time())
+        after_round = graph_cache_line(pl)
         launches = {name: c.launches for name, c in counters.items()}
         served_peak = torch.cuda.max_memory_allocated()
         builds = plan_counts()[0] - m0
@@ -4602,22 +4654,51 @@ def serving_phase(counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp):
             st["max_slice_gap_during_scan_drain_ms"] = max(gaps or [0.0])
         estimates = {name: [j.estimate for _, j in jobs] for name, (jobs, _) in out.items()}
         rows_table = {r["session"]: r for r in srv.sessions_table() if "session" in r}
-        plan_builds = {r["pipeline"]: r["build_wall_ms"] for r in pl.plan_cache_table()
-                       if r["pipeline"] in tenants}
+        # each tenant's build: its wall, and the host walls of the graph's
+        # warm-up (the footprint's own pool, made and freed, on a first
+        # capture) and of its capture
+        plan_builds = {r["pipeline"]: {k: r[k] for k in ("build_wall_ms", "warm_ms", "capture_ms")}
+                       for r in pl.plan_cache_table() if r["pipeline"] in tenants}
+        round_graph_bytes = {r["pipeline"]: {k: r[k] for k in ("graph_bytes", "out_bytes")}
+                             for r in pl.plan_cache_table() if r["pipeline"] in tenants}
         all_jobs = [j for jobs, _ in out.values() for _, j in jobs]
 
         # ---- each tenant's first job alone from a cold plan cache: its
         # peak over the memory allocated before (the graph's warm-up run
-        # and capture included); the cleared graphs' pool is released
-        # and the next capture takes a fresh one
-        cold_peaks = {}
+        # and capture included), beside the estimate admission gives the
+        # same job now that its capture was measured in the counted
+        # round. The cache is cleared and the allocator emptied before
+        # each, so the capture lays out its pool in unfragmented memory
+        cold_peaks, repriced, reserved, cold_graph_bytes = {}, {}, [], {}
+
+        def price_now(job):
+            """The estimate admission gives ``job`` now."""
+            again = Job(job.session, job.pipe, job.chunks, job.window, job.collect)
+            again.drained = job.drained
+            job.session.run_in_context(Server._price, again)
+            return again.estimate
+
+        def cold_cache():
+            pl.plan_cache_clear()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved.append(torch.cuda.memory_reserved())
+
         for name, spec in tenants.items():
-            release_plans()
+            cold_cache()
+            repriced[name] = price_now(out[name][0][0][1])
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             spec["pipe"].stream(spec["sources"][0](), window=2)
             torch.cuda.synchronize()
             cold_peaks[name] = torch.cuda.max_memory_allocated() - base
+            cold_graph_bytes[name] = [r["graph_bytes"] for r in pl.plan_cache_table()
+                                      if r["pipeline"] == name]
+        cold_cache()
+        # the cleared graphs leave no reserved bytes behind
+        if abs(reserved[-1] - reserved[0]) > 256 << 20:
+            raise AssertionError(f"memory_reserved after plan_cache_clear: {reserved}")
 
         # ---- the serial single-tenant runs of the same jobs (warm)
         serial, serial_s, peaks = {}, {}, {}
@@ -4725,8 +4806,16 @@ def serving_phase(counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp):
         # ---- overload: a burst at 1/8 of the priced estimates
         burst = {name: dict(spec, sources=(spec["sources"] * 2)[:2])
                  for name, spec in tenants.items()}
-        burst_est = sum(sum((estimates[name] * 2)[:2]) for name in burst)
-        srv2 = Server(burst_est // 8, max_queue=4).start()
+
+        # what the burst's jobs are priced at now (a cached plan adds no
+        # capture bytes). Their room is 1/8 of that beside the graphs
+        # cached now: the capacity covers both, and one shared pool holds
+        # every graph, so a capacity under the cache would flush it and
+        # price every job's capture. A job that needs more room than the
+        # cache leaves has the coldest graphs no admitted job runs evicted
+        burst_est = sum(price_now(j) for jobs, _ in out.values()
+                        for _, j in (jobs * 2)[:2])
+        srv2 = Server(burst_est // 8 + pl.graph_cache_bytes(), max_queue=4).start()
         servers.append(srv2)
         sessions2 = {name: srv2.open_session(name) for name in burst}
         q0, r0 = (metrics.counter_value("admission.queued"),
@@ -4741,9 +4830,10 @@ def serving_phase(counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp):
                     burst[name]["check"](k, i, res)
                     if not same_tables(res, serial[name][k % len(serial[name])][i]):
                         raise AssertionError(f"burst {name} job {k} chunk {i} differs")
-        if queued < 1 or rejected < 1:
-            raise AssertionError(f"1/8-capacity burst: queued {queued}, rejected {rejected}")
         admitted = sum(len(jobs) for jobs, _ in o2.values())
+        if admitted < 1 or queued < 1 or rejected < 1:
+            raise AssertionError(f"1/8-capacity burst: admitted {admitted}, queued {queued}, "
+                                 f"rejected {rejected}")
 
         # ---- trace.timeline over one q1 chunk; the journal through traceview
         with trace.timeline(os.path.join(tmp, "timeline")) as prof:
@@ -4778,11 +4868,29 @@ def serving_phase(counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp):
         st["serial_rows/s"] = sum(tenants[name]["rows"]) / serial_s[name]
         st["plan_cache"] = rows_table[name]["plan_cache"]
         st["estimate_bytes"] = estimates[name]
+        st["repriced_estimate_bytes"] = repriced[name]
         st["cold_peak_bytes"] = cold_peaks[name]
         st["warm_peak_bytes"] = peaks[name]
         st["plan_build_ms"] = plan_builds.get(name)
+        st["graph_bytes"] = {"counted_round": round_graph_bytes.get(name),
+                             "cold": cold_graph_bytes[name]}
         print(f"serving [{name}]: {json.dumps(st)}", flush=True)
     total_rows = sum(sum(t["rows"]) for t in tenants.values())
+    ratios = {name: {"counted_round": round(estimates[name][0] / cold_peaks[name], 3),
+                     "repriced": round(repriced[name] / cold_peaks[name], 3)}
+              for name in tenants}
+    print(f"serving graph cache: at entry {json.dumps(entry)}, after the counted round "
+          f"{json.dumps(after_round)}; evictions in the counted round {evictions[0]} freeing "
+          f"{evictions[1]} bytes; memory_reserved after plan_cache_clear + gc + empty_cache "
+          f"{reserved[-1]} against {reserved[0]} before the cold captures "
+          f"({(reserved[-1] - reserved[0]) / 2**20:+.1f} MiB); estimate / cold peak per tenant "
+          f"(the counted round's first job; the same job re-priced once its capture was "
+          f"measured) {json.dumps(ratios)}", flush=True)
+    # a job whose plan was captured before is priced from that capture's
+    # measured bytes, which must cover what the job takes from a cold cache
+    short = {name: r for name, r in ratios.items() if r["repriced"] < 1.0}
+    if short:
+        raise AssertionError(f"estimates under the cold peaks of measured plans: {short}")
     print(f"serving: {n_done} jobs of 4 tenants exact against their host oracles and their "
           f"serial runs; counted round {wall * 1e3:.1f} ms, {total_rows / wall:.4g} rows/s, "
           f"{builds} plans built in it on the dispatch thread, "
@@ -5167,7 +5275,7 @@ def faultinj_phase(counters, card, ss_path, q1_ctx, q5_ctx):
         # forgets the loaded libraries, so they are fetched again through
         # the seams before the rule is armed, and the first pjrt.compile
         # crossing left is the capture
-        release_plans()
+        pl.plan_cache_clear()
         fp.install()
         for name in loaded:
             _build.load(name)
@@ -5205,8 +5313,11 @@ def main() -> int:
     phase_t = [time.perf_counter()]
 
     def phase_done(label):
+        from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
+
         now = time.perf_counter()
-        print(f"phase {label}: {now - phase_t[0]:.1f} s wall", flush=True)
+        print(f"phase {label}: {now - phase_t[0]:.1f} s wall; plan cache "
+              f"{json.dumps(graph_cache_line(pl))}", flush=True)
         phase_t[0] = now
 
     # ---- 1. device
@@ -5280,6 +5391,11 @@ def main() -> int:
             "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
+        if label == "keys":
+            timings[label]["medians_ms"] = launch_medians(
+                lambda: murmur3.hash_planes(w, v, plan, seed))
+            timings[label]["bound_share"] = [
+                round(timings[label]["bound_ms"] / m, 3) for m in timings[label]["medians_ms"]]
         print(f"murmur3 timing [{label}]: {json.dumps(timings[label])}", flush=True)
 
     # ---- 4. main path, counted
@@ -5458,11 +5574,12 @@ def main() -> int:
             counters, card, q1_ctx, q5_ctx)["murmur3_chain"]
         phase_done("28 sharded stream")
 
-        # ---- 29. four tenants through the serving driver, counted; the
-        # plans of phases 21-28 are not used again: their graphs and the
-        # allocator's cached blocks go before the tenants lay out their data
-        # (a work-around: the plan cache does not bound its graphs' bytes)
-        release_plans()
+        # ---- 29. four tenants through the serving driver, counted, with
+        # phases 21-28's graphs still cached up to the cache's byte bound
+        from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
+
+        if graph_cache_line(pl)["graphs"] < 1:
+            raise AssertionError("no graph of phases 21-28 is cached at phase 29's entry")
         launches["serving"] = serving_phase(
             counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp)["murmur3_chain"]
         phase_done("29 serving")
@@ -5494,7 +5611,9 @@ def main() -> int:
         "replaces": "spark_rapids_jni_tpu/kernels/murmur3.py:101",
         "launches": main_launches,
         "launches_by_path": launches,
-        "exchange_shape": {k: exchange_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bytes")},
+        "exchange_shape": {k: exchange_shape[k]
+                           for k in ("ms", "medians_ms", "plain_ms", "bound_ms", "bytes")},
+        "medians_ms": k["medians_ms"],
         "max_abs_err": max_err,
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

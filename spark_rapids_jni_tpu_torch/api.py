@@ -34,7 +34,13 @@ from .ops import regex as _regex
 from .ops import row_conversion as _row_conversion
 from .ops import sort as _sort
 from .ops import zorder as _zorder
-from .ops.parquet_footer import ParquetFooter  # noqa: F401
+from .ops.parquet_footer import (  # noqa: F401  (re-export, ParquetFooter.java)
+    ListElement,
+    MapElement,
+    ParquetFooter,
+    StructElement,
+    ValueElement,
+)
 from .ops.parquet_reader import ParquetReader, read_table  # noqa: F401
 from .runtime.scan import ScanPlan, prefetch_chunks, scan_chunks  # noqa: F401  (streamed scan)
 from .runtime import events as _events
@@ -44,7 +50,12 @@ from .runtime import pipeline as _pipeline
 from .runtime import resource as _resource
 from .runtime import spans as _spans
 from .runtime import trace as _trace
-from .runtime.errors import RetryOOMError  # noqa: F401  (terminal retry error)
+from .runtime.errors import (  # noqa: F401
+    CapacityExceededError,
+    CastException,
+    JsonParsingException,
+    RetryOOMError,
+)
 
 
 class CastStrings:
@@ -226,9 +237,12 @@ def _serving():
 def serving_server(capacity_bytes: int, **kw):
     """Start a multi-tenant serving driver over this process's device
     (``spark_rapids_jni_tpu_torch/serving``): admission-controlled,
-    fair-interleaved concurrent ``resource.task`` serving. Returns the
-    started ``Server``; open tenants with ``server.open_session`` and
-    submit ``Pipeline`` work with ``server.submit``."""
+    fair-interleaved concurrent ``resource.task`` serving.
+    ``capacity_bytes`` is the device memory the jobs and the cached
+    CUDA graphs may hold together: admission leaves out what the graph
+    cache holds when it admits. Returns the started ``Server``; open
+    tenants with ``server.open_session`` and submit ``Pipeline`` work
+    with ``server.submit``."""
     return _serving().Server(capacity_bytes, **kw).start()
 
 

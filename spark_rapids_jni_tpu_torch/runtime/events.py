@@ -97,9 +97,13 @@ EVENT_NAMES = frozenset(
         #   eager fallback journals — there is no silent bypass.
         "plan_cache_evict",  # an LRU bound pushed a plan-keyed entry
         #   out (runtime/pipeline.py): the executable cache at
-        #   _PLAN_CACHE_CAP or the capacity-feedback side table at
-        #   _PLAN_FEEDBACK_CAP; attrs: plan (evicted signature hash),
-        #   table (executable|feedback) — under cross-tenant sharing a
+        #   _PLAN_CACHE_CAP or its device's CUDA-graph byte bound, or
+        #   the capacity-feedback side table at _PLAN_FEEDBACK_CAP;
+        #   attrs: plan (evicted signature hash), table
+        #   (executable|feedback), freed_bytes (executable: the bytes
+        #   the graph bound counted for it, its pool's with the
+        #   device's last graph; 0 for an eager program) — under
+        #   cross-tenant sharing a
         #   tenant whose hot plan was pushed out by another tenant's
         #   churn reads WHICH and WHEN here, not just a later miss
         "session_open",  # a serving session opened (serving/session

@@ -72,6 +72,7 @@ import hashlib
 import os
 import threading
 import time
+import traceback
 import types
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -93,9 +94,25 @@ from . import trace as _trace
 # shapes — the built program is reusable verbatim.
 
 _PLAN_CACHE_CAP = 128
-# a captured graph holds its chain's device memory (its private pool)
-# for as long as it is cached, so graph entries get a tighter LRU cap
-_GRAPH_CACHE_CAP = 16
+# a captured graph holds device memory for as long as it is cached, so
+# graph entries are also bounded by bytes: this share of the card's
+# memory (``mem_get_info()[1]``, read once per device). What the bound
+# counts: each cached graph's static inputs once, and its device's
+# shared pool once, whole (the pool's reserved segments hold every
+# graph's captured outputs and the intermediates the captures share).
+_GRAPH_CACHE_SHARE = 0.25
+# the capture bytes admission charges a plan no capture has measured
+# yet: this multiple of its padded plan's estimate (_estimate_from_basis).
+# On an H100 the cold peaks of a q1, a q5 and a shuffle-write job ran at
+# 6.4-11.0x that estimate (PERF.md, Findings)
+_GRAPH_PRIOR = 16
+# ... and for a chain with a stage that parses strings at a width knob
+# (_STRING_STAGES): its per-character intermediates, which the planes'
+# row bytes do not see, took store_sales' casts and get_json_object to
+# 57x the estimate on the same card
+_GRAPH_PRIOR_STRINGS = 64
+_STRING_STAGES = frozenset(("cast_int", "cast_decimal", "cast_float", "get_json",
+                            "from_json", "rlike", "regexp_extract"))
 # capacity-feedback rows outlive programs, so the side table gets its
 # own, wider LRU cap
 _PLAN_FEEDBACK_CAP = 256
@@ -119,27 +136,181 @@ _plan_feedback: "Dict[str, dict]" = {}
 # allocator reuses a freed block only on the stream it was freed on.
 # The lock serialises captures and replays across threads, since every
 # replay writes the shared pool and its graph's static buffers. The
-# fourth entry holds the pool's live graphs: once the last one is
-# released (the plan cache cleared or turned over), the allocators drop
-# the pool, and capturing into its id again fails, so the next capture
+# fourth entry holds the pool's live graphs and the fifth its reserved
+# bytes at the last capture. The cache lets a pool go with its last
+# cached graph (evicted, or the cache cleared): once its graphs are
+# gone the allocator frees its segments at its next release of cached
+# blocks, and capturing into its id again fails, so the next capture
 # takes a fresh pool id.
 # sprtcheck: guarded-by=_plan_lock
 _graph_pools: "Dict[str, list]" = {}
+# the graph byte bound per device, fixed at its first capture
+# sprtcheck: guarded-by=_plan_lock
+_graph_bounds: "Dict[str, int]" = {}
+# (graph bytes, output bytes) measured at each capture, keyed like
+# _plan_cache and LRU-bounded like _plan_feedback: the record outlives
+# an evicted plan, so admission can charge the next capture of it
+# sprtcheck: guarded-by=_plan_lock
+_graph_bytes_seen: "Dict[tuple, tuple]" = {}
 _plan_lock = threading.Lock()
 
 
 def plan_cache_clear() -> None:
     """Drop every cached program and the capacity-feedback side table
-    (tests)."""
+    (tests, and measurements that need a cold cache). The cached graphs'
+    static buffers and outputs go back to the allocator, and a pool
+    left with no live graph to the allocator's next release of cached
+    blocks; the measured graph bytes stay, to price the next capture."""
     with _plan_lock:
         _plan_cache.clear()
         _plan_stats.clear()
         _plan_feedback.clear()
+        for d in _graph_pools:
+            _drop_pool(d)
 
 
 def plan_cache_size() -> int:
     with _plan_lock:
         return len(_plan_cache)
+
+
+def _held_bytes(prog) -> int:
+    """What evicting a cached program gives back outside its pool."""
+    return prog.static_bytes if prog.form == "graph" else 0
+
+
+def _graph_entries(dev: str) -> "List[tuple]":
+    """``(key, form, bytes)`` of every cache entry on ``dev``, coldest
+    first, in the form ``_graph_evictions`` takes. Caller holds
+    _plan_lock."""
+    return [(k, v.form, _held_bytes(v)) for k, v in _plan_cache.items()
+            if getattr(v, "device", None) == dev]
+
+
+def _pool_bytes(dev: str) -> int:
+    """The reserved bytes of ``dev``'s shared graph pool at its last
+    capture. Caller holds _plan_lock."""
+    got = _graph_pools.get(dev)
+    return got[4] if got is not None else 0
+
+
+def _drop_pool(dev: str) -> None:
+    """Let ``dev``'s shared pool go: the next capture takes a fresh one.
+    Caller holds _plan_lock."""
+    got = _graph_pools.get(dev)
+    if got is not None:
+        got[0], got[4] = None, 0
+
+
+def _graph_total(entries, pool_bytes: int) -> int:
+    """The bytes the bound counts over ``entries``: the graphs' own
+    bytes, plus the shared pool once while one graph holds it."""
+    graphs = [b for _, form, b in entries if form == "graph"]
+    return sum(graphs) + (pool_bytes if graphs else 0)
+
+
+def _graph_evictions(entries, pool_bytes: int, need: int, bound: int,
+                     keep=frozenset()) -> "List[tuple]":
+    """The keys to evict, coldest first, so that the cached graphs'
+    bytes plus a new plan's ``need`` fit ``bound``: ``(key, freed)``
+    pairs. ``entries`` are one device's cache entries ``(key, form,
+    bytes)`` in LRU order, coldest first; a graph's bytes are the
+    static inputs it holds outside the shared pool, and the pool's
+    ``pool_bytes`` are freed with its last graph. Eager entries hold
+    nothing the bound counts and are never chosen, nor are the keys in
+    ``keep``. When even an empty cache cannot fit ``need``, every graph
+    not kept goes."""
+    graphs = [(k, b) for k, form, b in entries if form == "graph"]
+    total = _graph_total(entries, pool_bytes)
+    left = len(graphs)
+    out = []
+    for k, b in graphs:
+        if total + need <= bound:
+            break
+        if k in keep:
+            continue
+        left -= 1
+        freed = b + (pool_bytes if left == 0 else 0)
+        out.append((k, freed))
+        total -= freed
+    return out
+
+
+def _pop_entry(key: tuple) -> tuple:
+    """Drop one cache entry: ``(its signature hash, the bytes the bound
+    counted for it)``. With its device's last graph the shared pool goes
+    too, and its bytes count as freed. Caller holds _plan_lock."""
+    exe = _plan_cache[key]
+    dev = getattr(exe, "device", None)
+    alone = exe.form == "graph" and sum(
+        1 for v in _plan_cache.values()
+        if v.form == "graph" and getattr(v, "device", None) == dev) == 1
+    freed = _held_bytes(exe) + (_pool_bytes(dev) if alone else 0)
+    if alone:
+        _drop_pool(dev)
+    # sprtcheck: disable=lock-discipline — every caller holds _plan_lock
+    _plan_cache.pop(key)
+    # sprtcheck: disable=lock-discipline — every caller holds _plan_lock
+    st = _plan_stats.pop(key, None)
+    return (st["sig"] if st else _sig_hash(key[0])), freed
+
+
+def _evict_graphs(dev: str, need: int, bound: int, keep=frozenset()) -> "List[tuple]":
+    """Evict ``dev``'s coldest graphs (never one in ``keep``) until the
+    cached graphs' bytes plus ``need`` fit ``bound``; returns
+    ``(signature hash, freed bytes)`` per eviction. Caller holds
+    _plan_lock."""
+    chosen = _graph_evictions(_graph_entries(dev), _pool_bytes(dev), need, bound, keep)
+    return [_pop_entry(k) for k, _ in chosen]
+
+
+def _emit_evictions(op: str, evicted: "List[tuple]") -> None:
+    for ev_sig, freed in evicted:
+        _metrics.counter("pipeline.plan_cache_evict").inc()
+        _events.emit("plan_cache_evict", op=op, plan=ev_sig, table="executable",
+                     freed_bytes=int(freed))
+
+
+def make_room(limit: int, keep=frozenset()) -> int:
+    """Evict the coldest cached graphs, never one whose plan key is in
+    ``keep``, until the graph cache's bytes are at most ``limit``, or
+    evict none when even every graph not kept could not get them there;
+    returns the cache's bytes after. Serving admission calls it when a
+    job fits its capacity only without the cached graphs. The evicted
+    graphs are released under their device's graph lock, so no capture
+    runs on the card meanwhile."""
+    with _plan_lock:
+        held = {}
+        for d in _graph_pools:
+            entries, pool = _graph_entries(d), _pool_bytes(d)
+            total = _graph_total(entries, pool)
+            # what is left once every graph not kept has gone
+            gone = sum(f for _, f in _graph_evictions(entries, pool, 0, -1, keep))
+            held[d] = (total, total - gone)
+    total = sum(t for t, _ in held.values())
+    if total <= limit or sum(f for _, f in held.values()) > limit:
+        return total
+    for d in held:
+        with _graph_entry(d)[2], _plan_lock:
+            others = sum(_graph_total(_graph_entries(o), _pool_bytes(o)) for o in held if o != d)
+            evicted = _evict_graphs(d, 0, limit - others, keep)
+        _emit_evictions("serving.admission", evicted)
+    return graph_cache_bytes()
+
+
+def graph_cache_bytes(dev=None) -> int:
+    """Device bytes the cached CUDA graphs hold, as the byte bound counts
+    them: each graph's static inputs plus its device's shared pool,
+    once. ``dev`` None sums every device; 0 on the CPU."""
+    with _plan_lock:
+        devs = list(_graph_pools) if dev is None else [str(dev)]
+        return sum(_graph_total(_graph_entries(d), _pool_bytes(d)) for d in devs)
+
+
+def graph_cache_bound(dev) -> Optional[int]:
+    """``dev``'s graph byte bound, or None before its first capture."""
+    with _plan_lock:
+        return _graph_bounds.get(str(dev))
 
 
 def plan_cache_table() -> "List[dict]":
@@ -194,6 +365,7 @@ def render_plan_rows(rows: "List[dict]") -> str:
             f"plan {r['sig']} pipeline={r['pipeline']} "
             f"hits={r['hits']} build={r['build_wall_ms']}ms "
             f"donate={int(bool(r.get('donate')))} form={r.get('form')}"
+            + ("" if r.get("form") != "graph" else f" graph_bytes={r.get('graph_bytes')}")
             + ("" if r.get("shard") is None else f" shard={r['shard']!r}")
         )
         stages = r.get("stages") or []
@@ -717,6 +889,11 @@ def _stage_probe(st: "_State", shard: Optional[_ShardSpec] = None) -> torch.Tens
     return torch.cat([torch.stack(head), torch.stack(rows_d), torch.stack(bytes_d)])
 
 
+def _captures(dev: torch.device) -> bool:
+    """Whether a whole chain on ``dev`` runs as a CUDA graph (a card)."""
+    return dev.type == "cuda"
+
+
 def _table_device(table) -> torch.device:
     if hasattr(table, "mesh"):
         return table.mesh.devices[0]
@@ -1135,19 +1312,88 @@ class _EagerProgram:
             return self._fn(chunk, sides)
 
 
-def _graph_pool(dev) -> list:
-    """[memory pool, stream, lock, live graphs] shared by the device's
-    graphs; a pool with no live graph is replaced by a fresh one."""
+def _graph_bound(dev) -> int:
+    """The device's graph byte bound, fixed from its memory at first use."""
+    key = str(dev)
+    with _plan_lock:
+        got = _graph_bounds.get(key)
+    if got is None:
+        got = int(torch.cuda.mem_get_info(dev)[1] * _GRAPH_CACHE_SHARE)
+        with _plan_lock:
+            got = _graph_bounds.setdefault(key, got)
+    return got
+
+
+def _graph_pool(dev, prog) -> list:
+    """[memory pool, stream, lock, live graphs, pool bytes] shared by
+    the device's graphs, with ``prog`` joined to its live graphs; a pool
+    with no live graph is replaced by a fresh one, whose reserved bytes
+    start at 0."""
+    got = _graph_entry(dev)
+    with _plan_lock:
+        if got[0] is None or not got[3]:
+            got[0], got[4] = torch.cuda.graph_pool_handle(), 0
+        got[3].add(prog)
+    return got
+
+
+def _graph_entry(dev) -> list:
+    """The device's graph entry, made at first use. Its lock is held
+    through every capture and replay on the device, and wherever a
+    pool's segments are freed, which the allocator cannot do while a
+    capture runs."""
     with _plan_lock:
         got = _graph_pools.get(str(dev))
         if got is None:
             got = _graph_pools[str(dev)] = [
-                torch.cuda.graph_pool_handle(), torch.cuda.Stream(device=dev),
-                threading.Lock(), weakref.WeakSet(),
+                None, torch.cuda.Stream(device=dev), threading.RLock(), weakref.WeakSet(), 0,
             ]
-        elif not got[3]:
-            got[0] = torch.cuda.graph_pool_handle()
         return got
+
+
+# sprtcheck: host-side — reads the allocator's segment table between
+# captures; it queues no device work and waits for none
+def _pool_reserved(pool_id) -> int:
+    """The bytes of the segments the allocator has reserved for a pool."""
+    pool_id = tuple(pool_id)
+    return sum(s["total_size"]
+               for s in torch.cuda.memory_snapshot(mempool_id=pool_id, include_traces=False)
+               if tuple(s["segment_pool_id"]) == pool_id)
+
+
+def _footprint(dev, fn, *args) -> int:
+    """Run ``fn(*args)`` with its allocations in a pool of its own and
+    return that pool's reserved bytes: the device memory ``fn`` takes
+    from an empty pool. The pool goes before this returns, its segments
+    back to the card, so the caller holds the device's graph lock."""
+    with torch.cuda.device(dev):
+        pool = torch.cuda.MemPool()
+    try:
+        with torch.cuda.use_mem_pool(pool, dev):
+            fn(*args)
+        return _pool_reserved(pool.id)
+    except BaseException as e:
+        # no frame of the traceback may keep the pool past the lock
+        traceback.clear_frames(e.__traceback__)
+        raise
+    finally:
+        del pool
+
+
+def _device_bytes(tree) -> int:
+    """Bytes of the card tensors in ``tree`` (0 on the CPU)."""
+    return _tensor_bytes([t for t in _flatten(tree)[0] if t.is_cuda])
+
+
+def _tensor_bytes(tensors) -> int:
+    """Bytes of ``tensors``, each storage once."""
+    seen = set()
+    n = 0
+    for t in tensors:
+        if t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            n += t.numel() * t.element_size()
+    return n
 
 
 # the faults runtime/faultinj*.py inject, which a capture passes through
@@ -1165,27 +1411,48 @@ class _GraphProgram:
     shared pool and replays on one stream, under one lock held from the
     copy-in to the clone, so concurrent callers take turns; the caller's
     stream waits for the replay. The capture runs after one warm-up run
-    on that stream, which uploads every lookup table the chain reads; a
-    stage that syncs the host or moves data from pageable memory cannot
-    be captured and raises PipelineError naming it."""
+    on that stream, which uploads every lookup table the chain reads and,
+    in a pool of its own, measures the chain's footprint (unless
+    ``graph_bytes`` of an earlier capture of the plan is given). A stage
+    that syncs the host or moves data from pageable memory cannot be
+    captured and raises PipelineError naming it. ``graph_bytes`` (static
+    inputs plus footprint), ``static_bytes``, ``out_bytes`` and
+    ``pool_bytes`` record what the capture measured; ``warm_ms`` and
+    ``capture_ms`` the host wall of the warm-up (with the footprint's
+    pool, made and freed) and of the capture."""
 
     form = "graph"
 
-    def __init__(self, fn, where: dict, labels: List[str], chunk, sides):
+    def __init__(self, fn, where: dict, labels: List[str], chunk, sides,
+                 graph_bytes: Optional[int] = None):
         from ..ops._strategy import fusing
 
         leaves, self._in_spec = _flatten((chunk, sides))
         dev = leaves[0].device
-        pool, self._stream, self._lock, graphs = _graph_pool(dev)
+        self.device = str(dev)
+        entry = _graph_pool(dev, self)
+        pool, self._stream, self._lock = entry[:3]
         caller = torch.cuda.current_stream(dev)
         with self._lock:
+            t0 = time.perf_counter()
             self._stream.wait_stream(caller)
             # the static buffers belong to the replay stream, the only
             # stream that reads or writes them
             with torch.cuda.stream(self._stream), fusing():
                 self._static_in = [t.clone() for t in leaves]
                 static_chunk, static_sides = _unflatten(self._in_spec, self._static_in)
-                fn(static_chunk, static_sides)  # warm-up: tables, allocator pools
+                # warm-up: it uploads every table the chain reads. Unless
+                # the plan's graph_bytes were measured before, it runs in
+                # a pool of its own, whose reserved bytes are the chain's
+                # footprint: what its capture takes from an empty pool
+                # (the shared pool's growth is only what this capture
+                # adds to the graphs already in it)
+                footprint = None
+                if graph_bytes is None:
+                    footprint = _footprint(dev, fn, static_chunk, static_sides)
+                else:
+                    fn(static_chunk, static_sides)
+            t1 = time.perf_counter()
             # capture through the low-level calls: the torch.cuda.graph
             # context would first empty the allocator's cache (seconds
             # when tens of GB are cached) and collect garbage
@@ -1197,8 +1464,8 @@ class _GraphProgram:
                         out = fn(static_chunk, static_sides)
                     finally:
                         self._graph.capture_end()
-            except _INJECTED_FAULTS:
-                raise  # an injected fault is the caller's to see, not a capture break
+            except _INJECTED_FAULTS + (torch.cuda.OutOfMemoryError,):
+                raise  # the caller's to see, not a capture break
             except Exception as e:
                 i = where.get("stage")
                 label = labels[i] if i is not None and i < len(labels) else "?"
@@ -1206,10 +1473,20 @@ class _GraphProgram:
                     f"stage {label} cannot run inside a CUDA graph: it syncs the "
                     f"host or copies from pageable memory ({type(e).__name__}: {e})"
                 ) from e
+            # graph_bytes prices the capture: its static inputs and its
+            # footprint, which holds its captured outputs too. The cache's
+            # bound counts the static inputs and the shared pool, once
+            self._out, self._out_spec = _flatten(out)
+            self.pool_bytes = _pool_reserved(pool)
+            self.warm_ms, self.capture_ms = (t1 - t0) * 1000, (time.perf_counter() - t1) * 1000
+            self.static_bytes = _tensor_bytes(self._static_in)
+            self.out_bytes = _tensor_bytes(self._out)
+            self.graph_bytes = (graph_bytes if footprint is None
+                                else self.static_bytes + footprint)
             with _plan_lock:
-                graphs.add(self)
+                if entry[0] is pool:
+                    entry[4] = self.pool_bytes
             caller.wait_stream(self._stream)
-        self._out, self._out_spec = _flatten(out)
 
     def __call__(self, chunk, sides):
         leaves, _ = _flatten((chunk, sides))
@@ -2029,6 +2306,53 @@ class Pipeline:
 
     # -- program cache -------------------------------------------------
 
+    def _plan_key(self, chunk, plan: dict, donate: bool, stage: Optional[int] = None,
+                  sig_str: Optional[str] = None, shard: Optional[_ShardSpec] = None) -> tuple:
+        """The plan-cache key of ``chunk`` under ``plan``."""
+        key = (sig_str if sig_str is not None else self.signature(),
+               tuple(sorted(plan.items())), bool(donate),
+               _avals_key((chunk, tuple(self._sides))),
+               None if shard is None else shard.key())
+        return key if stage is None else key + (("stage", stage),)
+
+    def _graph_price(self, key: tuple, chunk, plan: dict) -> tuple:
+        """``(capture bytes, output bytes)`` of ``key``'s graph on the
+        card. The first is 0 when the plan is cached, else the graph
+        bytes measured at its last capture in this process, else the
+        prior: ``_GRAPH_PRIOR`` (``_GRAPH_PRIOR_STRINGS`` for a chain
+        with a string-parsing stage) times its padded plan's estimate.
+        The second is one chunk's graph outputs, which each replay
+        clones out, as measured at the plan's capture (0 before one)."""
+        with _plan_lock:
+            exe = _plan_cache.get(key)
+            seen = _graph_bytes_seen.get(key)
+        if exe is not None:
+            return 0, getattr(exe, "out_bytes", 0)
+        if seen is not None:
+            return seen
+        if not hasattr(chunk, "columns"):
+            return 0, 0
+        prior = (_GRAPH_PRIOR_STRINGS if any(s.kind in _STRING_STAGES for s in self._steps)
+                 else _GRAPH_PRIOR)
+        return prior * self._estimate_from_basis(*self._estimate_basis(chunk), plan), 0
+
+    def _graph_charge(self, chunks, feedback: Optional[dict] = None) -> tuple:
+        """Admission's charges for running ``chunks`` on the card, each
+        under the initial plan its run gets: ``(capture bytes, output
+        bytes, plan keys)``. A job captures one graph for each distinct
+        plan key among its chunks (one per chunk shape), so the first
+        sums ``_graph_price``'s capture over them; the second is the
+        largest one chunk's outputs among them; the third those keys.
+        ``(0, 0, ())`` on the CPU."""
+        if not chunks or not _captures(_table_device(chunks[0])):
+            return 0, 0, ()
+        plans: dict = {}
+        for c in chunks:
+            plan = self._initial_plan(c.num_rows, feedback)
+            plans.setdefault(self._plan_key(c, plan, False), (c, plan))
+        prices = [self._graph_price(k, c, plan) for k, (c, plan) in plans.items()]
+        return sum(p[0] for p in prices), max(p[1] for p in prices), tuple(plans)
+
     def _get_executable(
         self, chunk, plan: dict, donate: bool, stage: Optional[int] = None,
         sig_str: Optional[str] = None, shard: Optional[_ShardSpec] = None,
@@ -2036,9 +2360,11 @@ class Pipeline:
         """Plan-cache lookup / build. ``stage=None`` is the whole-chain
         program over ``(chunk, sides)``; an int is the ANALYZE-mode slice
         of that one stage over ``(state, sides)`` — same cache, same
-        counters, with a trailing ``("stage", i)`` key component."""
+        counters, with a trailing ``("stage", i)`` key component. A
+        graph's build first evicts the device's coldest graphs until the
+        cached graphs' bytes plus its price fit the device's bound, and
+        after the capture evicts again by its measured bytes."""
         sides = tuple(self._sides)
-        plan_key = tuple(sorted(plan.items()))
         if sig_str is None:
             sig_str = self.signature()
         dev = _table_device(chunk if stage is None else chunk[0])
@@ -2046,11 +2372,8 @@ class Pipeline:
         # ANALYZE slices and a chain sharded over several cards run it
         # eagerly (the device and the shard layout are in the key)
         one_card = shard is None or shard.mesh.shared_device == dev
-        form = "graph" if (dev.type == "cuda" and stage is None and one_card) else "eager"
-        key = (sig_str, plan_key, bool(donate), _avals_key((chunk, sides)),
-               None if shard is None else shard.key())
-        if stage is not None:
-            key = key + (("stage", stage),)
+        form = "graph" if (_captures(dev) and stage is None and one_card) else "eager"
+        key = self._plan_key(chunk, plan, donate, stage, sig_str, shard)
         sig = _sig_hash(sig_str)
         scope = _resource.current_task()
         if scope is not None:
@@ -2073,13 +2396,21 @@ class Pipeline:
                 acct["hits"] = acct.get("hits", 0) + 1
             _events.emit("plan_cache_hit", op=f"Pipeline.{self.name}", plan=sig)
             return exe
+        evicted: "List[tuple]" = []
+        if form == "graph":
+            bound = _graph_bound(dev)
+            need = self._graph_price(key, chunk, plan)[0]
+            with _plan_lock:
+                evicted = _evict_graphs(str(dev), need, bound)
+            _emit_evictions(f"Pipeline.{self.name}", evicted)
+            evicted = []
         t0 = time.perf_counter()
+        oom_release = False
         with _spans.span("plan_build", f"Pipeline.{self.name}", plan=sig):
             if stage is not None:
                 exe = _EagerProgram(self._stage_fn(stage, plan, shard))
             elif form == "graph":
-                fn, where = self._chain_fn(plan, shard)
-                exe = _GraphProgram(fn, where, self._stage_labels(), chunk, sides)
+                exe, oom_release = self._build_graph(key, plan, shard, chunk, sides)
             else:
                 exe = _EagerProgram(self._chain_fn(plan, shard)[0])
         wall_ms = (time.perf_counter() - t0) * 1000
@@ -2090,21 +2421,14 @@ class Pipeline:
         _metrics.timer("pipeline.plan_build").observe(wall_ms)
         _events.emit("plan_cache_miss", op=f"Pipeline.{self.name}", plan=sig,
                      wall_ms=round(wall_ms, 3))
-        evicted_sig: Optional[str] = None
         with _plan_lock:
-            graphs = [k for k, v in _plan_cache.items() if v.form == "graph"]
-            if len(_plan_cache) >= _PLAN_CACHE_CAP or (
-                form == "graph" and len(graphs) >= _GRAPH_CACHE_CAP
-            ):
-                evicted = graphs[0] if form == "graph" and graphs else next(iter(_plan_cache))
-                _plan_cache.pop(evicted)
-                est = _plan_stats.pop(evicted, None)
-                evicted_sig = est["sig"] if est else _sig_hash(evicted[0])
+            if len(_plan_cache) >= _PLAN_CACHE_CAP:
+                evicted.append(_pop_entry(next(iter(_plan_cache))))
             _plan_cache[key] = exe
             _plan_stats[key] = {
                 "sig": sig,
                 "pipeline": self.name,
-                "plan": dict(plan_key),
+                "plan": dict(key[1]),
                 "donate": bool(donate),
                 "form": form,
                 "shard": None if shard is None else shard.key(),
@@ -2116,12 +2440,53 @@ class Pipeline:
                     self._stage_labels() if stage is None
                     else [f"{stage}:{self._steps[stage].kind}"]
                 ),
+                # a graph's price (static inputs + footprint), one
+                # replay's outputs and the device's shared pool's
+                # reserved bytes, measured at the capture; the host wall
+                # of its warm-up and of its capture
+                "graph_bytes": getattr(exe, "graph_bytes", 0),
+                "out_bytes": getattr(exe, "out_bytes", 0),
+                "pool_bytes": getattr(exe, "pool_bytes", 0),
+                "warm_ms": round(getattr(exe, "warm_ms", 0.0), 3),
+                "capture_ms": round(getattr(exe, "capture_ms", 0.0), 3),
+                # the build released the allocator's cached blocks after
+                # running out of memory once
+                "oom_release": oom_release,
             }
-        if evicted_sig is not None:
-            _metrics.counter("pipeline.plan_cache_evict").inc()
-            _events.emit("plan_cache_evict", op=f"Pipeline.{self.name}", plan=evicted_sig,
-                         table="executable")
+            if form == "graph":
+                _graph_bytes_seen.pop(key, None)
+                _graph_bytes_seen[key] = (exe.graph_bytes, exe.out_bytes)
+                if len(_graph_bytes_seen) > _PLAN_FEEDBACK_CAP:
+                    _graph_bytes_seen.pop(next(iter(_graph_bytes_seen)))
+                # the measured bytes may exceed the price: evict the
+                # colder graphs, and this one, the hottest, too if it
+                # cannot fit alone (its chunk still runs; the next chunk
+                # captures again)
+                evicted += _evict_graphs(str(dev), 0, bound)
+        _emit_evictions(f"Pipeline.{self.name}", evicted)
         return exe
+
+    def _build_graph(self, key: tuple, plan: dict, shard, chunk, sides) -> tuple:
+        """Capture ``key``'s graph: ``(program, whether the build released
+        the allocator's cached blocks)``. Allocations routed to a pool
+        (the measuring warm-up, the capture) cannot make the allocator
+        release its cached blocks, as the out-of-memory retry of any
+        other allocation does: on running out of memory the build
+        releases them, under the device's graph lock so that no capture
+        runs meanwhile, and captures once more."""
+        fn, where = self._chain_fn(plan, shard)
+        labels = self._stage_labels()
+        with _plan_lock:
+            seen = _graph_bytes_seen.get(key)
+        seen = None if seen is None else seen[0]
+        dev = _table_device(chunk)
+        with _graph_entry(dev)[2]:
+            try:
+                return _GraphProgram(fn, where, labels, chunk, sides, seen), False
+            except torch.cuda.OutOfMemoryError:
+                pass
+            torch.cuda.empty_cache()
+            return _GraphProgram(fn, where, labels, chunk, sides, seen), True
 
     # -- execution -----------------------------------------------------
 

@@ -230,15 +230,21 @@ def sample_once() -> int:
     from . import metrics as _metrics
     from . import spans as _spans
 
-    frames = sys._current_frames()
     stacks = _spans.live_stacks()
     # detached streaming chunks are in flight on NO thread: fold them
     # with no host frames (their wall is device/retirement wait)
     detached = _spans.detached_spans()
     n = 0
+    # the frames map holds this very frame too: left to die with it, the
+    # two would keep every sampled thread's frames, and the tensors in
+    # their locals, alive until the garbage collector broke the cycle
+    frames = sys._current_frames()
+    try:
+        keys = [_fold_thread(stack, frames.get(ident)) for ident, (_name, stack) in stacks.items()]
+    finally:
+        del frames
     with _lock:
-        for ident, (_name, stack) in stacks.items():
-            key = _fold_thread(stack, frames.get(ident))
+        for key in keys:
             if key in _folded or len(_folded) < MAX_STACKS:
                 _folded[key] = _folded.get(key, 0) + 1
                 _samples += 1

@@ -19,8 +19,14 @@ hard way:
   could ever admit it, so queueing it would only head-of-line-block
   every tenant behind it until its deadline;
 - it fits the device headroom (``capacity_bytes`` minus reservations
-  of everything already admitted) → admit, reserving the estimate
-  until the job releases;
+  of everything already admitted, minus the bytes the cached CUDA
+  graphs hold now: ``pipeline.graph_cache_bytes()``, charged once, to
+  the cache) → admit, reserving the estimate until the job releases.
+  A job that fits beside the reservations but not beside the cached
+  graphs first has the coldest graphs evicted (``pipeline.make_room``),
+  never a plan that an admitted job or this job runs, unless nothing
+  is in flight: the cache gives way to jobs, so an idle device admits
+  any job within its capacity;
 - no headroom but queue room → queue FIFO with a deadline; the server
   promotes head-of-line when releases free headroom (FIFO, no
   overtaking — a small job never starves a big one at the head), and
@@ -38,10 +44,12 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import Counter
 from typing import List, Optional
 
 from ..runtime import events as _events
 from ..runtime import metrics as _metrics
+from ..runtime import pipeline as _pipeline
 
 DEFAULT_QUEUE_DEPTH = 16
 DEFAULT_DEADLINE_S = 30.0
@@ -83,6 +91,10 @@ class AdmissionController:
         # FIFO of queued jobs: (deadline_monotonic, job)
         # sprtcheck: guarded-by=_lock
         self._queue: List[tuple] = []
+        # plan keys the admitted jobs run, with their counts: their
+        # cached graphs stay while the jobs are in flight
+        # sprtcheck: guarded-by=_lock
+        self._keys: Counter = Counter()
 
     # -- the decision --------------------------------------------------
 
@@ -100,14 +112,18 @@ class AdmissionController:
             # it (strict FIFO) until its deadline — refuse now instead
             self._reject(job, "over_capacity")
         with self._lock:
+            waiting = bool(self._queue)
+        cached = _pipeline.graph_cache_bytes() if waiting else self._make_room(job, est)
+        with self._lock:
             # a non-empty queue bars the fast path: arrivals admit
             # directly only when nobody is waiting — otherwise a small
             # late job would overtake the queued head (FIFO contract)
             if (
                 not self._queue
-                and self._inflight_bytes + est <= self.capacity_bytes
+                and self._inflight_bytes + est + cached <= self.capacity_bytes
             ):
                 self._inflight_bytes += est
+                self._hold(job)
                 depth = len(self._queue)
                 inflight = self._inflight_bytes
                 admitted = True
@@ -149,14 +165,23 @@ class AdmissionController:
                 else:
                     keep.append((deadline, job))
             self._queue = keep
-            while self._queue:
-                _, job = self._queue[0]
-                est = int(job.estimate)
-                if self._inflight_bytes + est > self.capacity_bytes:
+        # only this thread takes jobs off the queue, so the head stays
+        # the head while the graph cache makes room for it
+        while True:
+            with self._lock:
+                if not self._queue:
+                    break
+                job = self._queue[0][1]
+            est = int(job.estimate)
+            cached = self._make_room(job, est)
+            with self._lock:
+                if self._inflight_bytes + est + cached > self.capacity_bytes:
                     break  # strict FIFO: no overtaking past the head
                 self._queue.pop(0)
                 self._inflight_bytes += est
+                self._hold(job)
                 admitted.append(job)
+        with self._lock:
             depth = len(self._queue)
             inflight = self._inflight_bytes
         for job in expired:
@@ -167,6 +192,28 @@ class AdmissionController:
         self._publish(depth, inflight)
         return admitted, expired
 
+    def _hold(self, job) -> None:
+        """Count an admitted job's plan keys. Caller holds _lock."""
+        self._keys.update(getattr(job, "plan_keys", ()))
+
+    def _make_room(self, job, est: int) -> int:
+        """The graph cache's bytes once it has made room for ``job``:
+        when the job fits the capacity beside the reservations but not
+        beside the cached graphs, the coldest graphs go, never one whose
+        plan an admitted job or this job runs; with nothing in flight
+        the job's own go too if it still does not fit. Dispatch-thread
+        only."""
+        with self._lock:
+            spare = self.capacity_bytes - self._inflight_bytes - est
+            idle = not self._inflight_bytes and not self._keys
+            keep = frozenset(self._keys) | frozenset(getattr(job, "plan_keys", ()))
+        if spare < 0:
+            return _pipeline.graph_cache_bytes()
+        cached = _pipeline.make_room(spare, keep)
+        if cached > spare and idle:
+            cached = _pipeline.make_room(spare)
+        return cached
+
     def release(self, job) -> None:
         """Return an admitted job's reservation (completion, failure,
         or cancellation of a queued-then-expired job never calls
@@ -175,6 +222,8 @@ class AdmissionController:
             self._inflight_bytes = max(
                 0, self._inflight_bytes - int(job.estimate)
             )
+            self._keys.subtract(getattr(job, "plan_keys", ()))
+            self._keys = +self._keys
             depth = len(self._queue)
             inflight = self._inflight_bytes
         self._publish(depth, inflight)

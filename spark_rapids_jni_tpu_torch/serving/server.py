@@ -84,6 +84,8 @@ class Job:
         self.collect = bool(collect)
         self.state = "submitted"  # -> queued|active -> done|failed
         self.estimate = 0  # priced at intake (admission reservation)
+        self.drained = False  # a lazy source drained at admission
+        self.plan_keys: tuple = ()  # the plans its chunks run (card only)
         self.sig: Optional[str] = None
         self.fb_on = False
         self.task: Optional[_resource.Task] = None
@@ -477,6 +479,7 @@ class Server:
         failure path."""
         if not isinstance(job.chunks, list):
             job.chunks = list(job.chunks)
+            job.drained = True
 
     @staticmethod
     def _price(job: Job) -> None:
@@ -484,22 +487,31 @@ class Server:
         initial plan the job's FIRST chunk would get (warm-started
         when the session's feedback knob is on), through the same
         estimator the retry driver budgets with, times the in-flight
-        window. Runs inside the session context — the feedback knob
-        and hence the signature are the tenant's own."""
+        window. On the card it adds what the job holds there beyond
+        that: the bytes of the graph captures its chunks' plans take,
+        one for each distinct plan not cached now (measured at the
+        plan's last capture, else a prior), one chunk's graph outputs
+        for each result it keeps and each chunk in flight, and the
+        chunks a lazy source put on the card when it drained at
+        admission; it records those plans' keys, which admission keeps
+        cached while the job is in flight. Every added term is 0 on the
+        CPU. Runs inside the session context — the feedback knob and
+        hence the signature are the tenant's own."""
         pipe, chunks = job.pipe, job.chunks
         job.fb_on = _pipeline.capacity_feedback()
         job.sig = pipe.signature_hash() if job.fb_on else None
         if not chunks:
             job.estimate = 0
             return
+        fb = _pipeline._feedback_for(job.sig) if job.fb_on else None
         n_rows = max(c.num_rows for c in chunks)
         _, row_b = pipe._estimate_basis(chunks[0])
-        plan0 = pipe._initial_plan(
-            n_rows,
-            _pipeline._feedback_for(job.sig) if job.fb_on else None,
-        )
+        plan0 = pipe._initial_plan(n_rows, fb)
         per_chunk = pipe._estimate_from_basis(n_rows, row_b, plan0)
-        job.estimate = per_chunk * min(job.window, len(chunks))
+        inflight = min(job.window, len(chunks))
+        capture, out, job.plan_keys = pipe._graph_charge(chunks, fb)
+        job.estimate = (per_chunk * inflight + capture + out * (len(chunks) + inflight)
+                        + (_pipeline._device_bytes(chunks) if job.drained else 0))
 
     def _activate(self, job: Job) -> None:
         with self._lock:

@@ -294,6 +294,49 @@ def test_live_folding_matches_the_jax_labels(both):
     assert folds["port"] == folds["jax"] and folds["port"]
 
 
+def test_a_sample_keeps_no_thread_frame_alive():
+    """A thread's locals die when its function returns, sampled or not:
+    the sampler's frame map must not outlive its tick (with the garbage
+    collector off, a cycle through it kept a CUDA graph's warm-up
+    intermediates alive and doubled a capture's peak on the card)."""
+    import gc
+    import weakref
+
+    import torch
+
+    entered, release, done = threading.Event(), threading.Event(), threading.Event()
+    refs = []
+
+    def hold():
+        payload = torch.zeros(1024)
+        refs.append(weakref.ref(payload))
+        entered.set()
+        release.wait(30)
+
+    def worker():
+        with pres.task(task_id=42):
+            pres.guard("held_op", hold)
+        done.set()
+
+    psampler.reset()
+    gc.disable()
+    try:
+        t = threading.Thread(target=worker)
+        t.start()
+        try:
+            assert entered.wait(10)
+            assert psampler.sample_once() >= 1
+        finally:
+            release.set()
+        assert done.wait(10)
+        assert refs[0]() is None
+        t.join(10)
+        assert not t.is_alive()
+    finally:
+        gc.enable()
+        psampler.reset()
+
+
 def test_timeline_and_annotate_function(tmp_path):
     """``trace.timeline`` writes a Chrome trace of the block (CPU
     activity only, as the tensors lie on the CPU); an ``op_range`` and an
