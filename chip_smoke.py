@@ -188,9 +188,18 @@ Phases, each fatal on failure:
      reaches the caller, a status 700 raised on a scan thread during a
      prefetch and delivered to the consumer, an assert at a cold plan's
      capture that caches nothing; every result exact
-  32. one JSON line of kernel numbers (with murmur3's launches on every
-     path: rung 1, the exchange paths 26-28, serving and the injector's
-     launch it, the others 0), the card line, then the verdict
+  32. DOUBLE keys at 4 Mi rows in three forms (float64 storage on the
+     card, the port's f64_bits_column, the JAX package's FLOAT64-over-
+     int64-bits form through interop), alone and after rung 1's keys:
+     partition ids through the kernel, equal across the forms, to the
+     plain chain and to a numpy Murmur3 of doubleToLongBits; then
+     Table.compact_validity and null_count on rung 1's convertFromRows
+     output and live_span_stats on a store_sales row group, card
+     against CPU
+  33. one JSON line of kernel numbers (with murmur3's launches on every
+     path: rung 1, the exchange paths 26-28, serving, the injector's and
+     the DOUBLE keys' launch it, the others 0), the card line, then the
+     verdict
 
 Exits non-zero, printing no verdict, without a card or without the port
 beside it. Data is made from fixed seeds.
@@ -429,8 +438,9 @@ def union_us(intervals):
     return busy + cur_e - cur_s
 
 
-def murmur3_numpy_int64_pairs(a, b, seed=42):
-    """Independent numpy Spark Murmur3 of (long a, long b) rows."""
+def murmur3_numpy_longs(cols, valids=None, seed=42):
+    """Independent numpy Spark Murmur3 of rows of longs (``cols``, each
+    int64 [n]); ``valids`` (bool [n] or None per column) skips nulls."""
     M = np.uint64(0xFFFFFFFF)
 
     def rotl(x, r):
@@ -450,11 +460,21 @@ def murmur3_numpy_int64_pairs(a, b, seed=42):
         h = (h * np.uint64(0xC2B2AE35)) & M
         return h ^ (h >> np.uint64(16))
 
-    h = np.full(a.shape, seed, np.uint64)
-    for x in (a, b):
+    h = np.full(cols[0].shape, seed, np.uint64)
+    for x, valid in zip(cols, valids or [None] * len(cols)):
         u = x.astype(np.int64).view(np.uint64)
-        h = fmix(mix(mix(h, u & M), u >> np.uint64(32)), 8)
+        h1 = fmix(mix(mix(h, u & M), u >> np.uint64(32)), 8)
+        h = h1 if valid is None else np.where(valid, h1, h)
     return h.astype(np.uint32).view(np.int32)
+
+
+def double_to_long_bits(v):
+    """Spark's doubleToLongBits of float64 ``v`` as hashing normalizes it:
+    -0.0 as 0, every NaN as the canonical 0x7FF8000000000000."""
+    bits = np.asarray(v, np.float64).view(np.int64).copy()
+    bits[v == 0.0] = 0
+    bits[np.isnan(v)] = 0x7FF8000000000000
+    return bits
 
 
 N_MIXED = 1 << 16  # 64 Ki rows
@@ -3834,7 +3854,6 @@ def q5_exchange_sf10(counters, card, ctx):
     one-card eager rung 3, the exchange's per-step ms and bytes, padding
     waste and re-plans, torch ops per batch, the idle share, peak
     memory, murmur3 launches per batch and the kernel at this shape."""
-    from spark_rapids_jni_tpu_torch.kernels import murmur3
     from spark_rapids_jni_tpu_torch.runtime import pipeline as pl
     from spark_rapids_jni_tpu_torch.runtime import resource
 
@@ -3904,13 +3923,7 @@ def q5_exchange_sf10(counters, card, ctx):
     # the kernel at the exchange's shape: l_orderkey's two int32 word planes
     from spark_rapids_jni_tpu_torch import Table
 
-    w, v, plan = murmur3.table_plan(Table([li0.columns[0]]))
-    k_ms = time_ms(lambda: murmur3.hash_planes(w, v, plan, 42), 50)
-    k_medians = launch_medians(lambda: murmur3.hash_planes(w, v, plan, 42))
-    p_ms = time_ms(lambda: murmur3.hash_planes_plain(w, v, plan, 42), 10)
-    k_bytes = 4 * w.numel() + v.numel() + 4 * w.shape[1]
-    k_ops = w.shape[1] * (11 * w.shape[0] + 10 * len(plan))
-    k_bound = max(k_bytes / HBM_BYTES_PER_S, k_ops / INT_OPS_PER_S) * 1e3
+    kern = kernel_shape(Table([li0.columns[0]]))
     eager = ctx["rows_per_s"]
     print(f"q5 exchange sf10: {len(parts)} batches over {N_SHARDS} shards on one card and the "
           f"final rows exact against the host oracle; lineitem rows/s {n_li / total_s:.4g} "
@@ -3927,14 +3940,14 @@ def q5_exchange_sf10(counters, card, ctx):
           f"memo rows {json.dumps(memo)}; program-cache rows {json.dumps(progs)}")
     print(f"q5 exchange torch ops per batch {counts['batch']}; peak device memory {peak} bytes; "
           f"murmur3 launches {json.dumps(launches)} ({launches['murmur3_chain'] / len(lis):.2f} "
-          f"per batch); kernel at the l_orderkey exchange shape ({w.shape[1]} rows, "
-          f"{k_bytes} bytes): {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {k_bound:.4f} ms; "
-          f"medians of 25 launches in three loops {json.dumps(k_medians)} ms, "
-          f"{json.dumps([round(k_bound / m, 3) for m in k_medians])} of the bound; "
+          f"per batch); kernel at the l_orderkey exchange shape ({kern['n']} rows, "
+          f"{kern['bytes']} bytes): {kern['ms']:.4f} ms, plain {kern['plain_ms']:.4f} ms, bound "
+          f"{kern['bound_ms']:.4f} ms; medians of 25 launches in three loops "
+          f"{json.dumps(kern['medians_ms'])} ms, "
+          f"{json.dumps([round(kern['bound_ms'] / m, 3) for m in kern['medians_ms']])} of the "
+          f"bound; "
           f"card: {card}", flush=True)
-    return launches, {"ms": k_ms, "medians_ms": k_medians, "plain_ms": p_ms,
-                      "bound_ms": k_bound, "bytes": k_bytes,
-                      "build": build, "build_live": build_live}
+    return launches, dict(kern, build=build, build_live=build_live)
 
 
 def sorted_table_bytes(tb):
@@ -5309,6 +5322,154 @@ def faultinj_phase(counters, card, ss_path, q1_ctx, q5_ctx):
 
 
 
+# ---- DOUBLE keys in the exact-bits form and the columnar surface (phase 32) ----
+
+# the DOUBLE key's edge values: ±0.0, NaNs of several payloads (quiet,
+# signalling, negative, all bits set), ±inf, the least subnormal, and
+# doubles at both ends of the exponent range
+F64_EDGES = np.concatenate([
+    [0.0, -0.0, np.inf, -np.inf, 5e-324, -1e-300, 1e300, np.nan],
+    np.array([0x7FF0000000000001, -1, 0x7FF8000000000123, -0x000FFFFFFFFFFFF0],
+             np.int64).view(np.float64),
+])
+
+
+def double_key_values(n, seed=32):
+    """Seeded doubles over the whole exponent range, every edge value in
+    the first rows and again at random rows (1 in 16)."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=n) * 10.0 ** rng.integers(-300, 300, n)
+    at = rng.integers(0, n, n // 16)
+    v[at] = F64_EDGES[rng.integers(0, len(F64_EDGES), len(at))]
+    v[: len(F64_EDGES)] = F64_EDGES
+    return v
+
+
+def kernel_shape(table, seed=42):
+    """The murmur3 kernel at ``table``'s plan: CUDA-event ms, launch
+    medians, the plain version's ms, the byte and operation bound."""
+    from spark_rapids_jni_tpu_torch.kernels import murmur3
+
+    w, v, plan = murmur3.table_plan(table)
+    nbytes = 4 * w.numel() + v.numel() + 4 * w.shape[1]
+    ops = w.shape[1] * (11 * w.shape[0] + 10 * len(plan))
+    return {
+        "W": w.shape[0], "V": v.shape[0], "n": w.shape[1],
+        "ms": time_ms(lambda: murmur3.hash_planes(w, v, plan, seed), 50),
+        "medians_ms": launch_medians(lambda: murmur3.hash_planes(w, v, plan, seed)),
+        "plain_ms": time_ms(lambda: murmur3.hash_planes_plain(w, v, plan, seed), 10),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3,
+        "bytes": nbytes,
+    }
+
+
+def double_keys_phase(counters, card, full, back, ss_path, n=N_MAIN):
+    """Phase 32: a DOUBLE key at rung 1's width built three ways (float64
+    storage on the card, the port's ``f64_bits_column``, and the JAX
+    package's exact-bits form through ``interop``: FLOAT64 over int64
+    ``doubleToLongBits``), hashed alone and after rung 1's keys. Counted:
+    each ``partition_ids`` call launches the kernel; the ids are equal
+    across the forms, equal to the plain per-column chain on the card
+    and, on the first 4096 rows, to a numpy Murmur3 of the Spark bits.
+    Then the columnar surface on rung 1's ``convertFromRows`` output with
+    one column given nulls (``Table.compact_validity``, ``null_count``)
+    and ``live_span_stats`` on a string column of phase 12's first row
+    group, each against the CPU. Returns the launches and the kernel at
+    the DOUBLE-key shapes."""
+    from spark_rapids_jni_tpu_torch import FLOAT64, Table
+    from spark_rapids_jni_tpu_torch.api import ParquetReader
+    from spark_rapids_jni_tpu_torch.columnar import strings
+    from spark_rapids_jni_tpu_torch.columnar.interop import table_from_numpy, table_to_numpy
+
+    host = double_key_values(n)
+    bits = double_to_long_bits(host)
+    valid = np.random.default_rng(33).random(n) > 0.1
+    on_card = torch.from_numpy(host).cuda()
+    valid_card = torch.from_numpy(valid).cuda()
+    forms = {
+        "float64": PortColumn(FLOAT64, on_card, valid_card),
+        "f64_bits_column": port_spark_hash.f64_bits_column(on_card, valid_card, device="cuda"),
+        "jax bits form": table_from_numpy([{"dtype": ("float", 64, None, None), "data": bits,
+                                            "validity": valid, "offsets": None}],
+                                          device="cuda").columns[0],
+    }
+    if forms["jax bits form"].data.dtype != torch.int64:
+        raise AssertionError("interop did not keep the int64 bits of the JAX form")
+    keys = [full.columns[i] for i in KEYS]
+    shapes = {"alone": lambda c: Table([c]), "after_keys": lambda c: Table(keys + [c])}
+    torch.cuda.synchronize()
+    for name in counters:
+        counters[name].launches = 0
+    ids = {(form, shape): port_spark_hash.partition_ids(make(col), NUM_PARTITIONS)
+           for shape, make in shapes.items() for form, col in forms.items()}
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    if launches["murmur3_chain"] != len(ids):
+        raise AssertionError(f"DOUBLE keys: {len(ids)} partition_ids calls, murmur3 launches "
+                             f"{launches}")
+    head = slice(0, 4096)
+    key_longs = [c.data[head].cpu().numpy() for c in keys]
+    for shape, make in shapes.items():
+        want = ids[("float64", shape)]
+        for form in forms:
+            if not torch.equal(ids[(form, shape)], want):
+                raise AssertionError(f"DOUBLE keys [{shape}]: {form} differs from float64")
+        h = port_spark_hash.DEFAULT_SEED
+        for col in make(forms["jax bits form"]).columns:
+            h = port_spark_hash.column_hash_update(col, h)
+        if not torch.equal(port_spark_hash.pmod(h, NUM_PARTITIONS), want):
+            raise AssertionError(f"DOUBLE keys [{shape}]: the kernel differs from the plain chain")
+        cols = ([] if shape == "alone" else key_longs) + [bits[head]]
+        valids = [None] * (len(cols) - 1) + [valid[head]]
+        ref = murmur3_numpy_longs(cols, valids).astype(np.int64)
+        if not np.array_equal(want[head].cpu().numpy(), (ref % NUM_PARTITIONS + NUM_PARTITIONS)
+                              % NUM_PARTITIONS):
+            raise AssertionError(f"DOUBLE keys [{shape}]: differs from the numpy Murmur3")
+    kernel = {shape: kernel_shape(make(forms["jax bits form"])) for shape, make in shapes.items()}
+    for shape, k in kernel.items():
+        print(f"DOUBLE keys [{shape}]: kernel at {k['n']} rows, {k['W']} word planes, {k['V']} "
+              f"validity plane(s), {k['bytes']} bytes: {k['ms']:.4f} ms, plain "
+              f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms; medians of 25 launches "
+              f"in three loops {json.dumps(k['medians_ms'])} ms, "
+              f"{json.dumps([round(k['bound_ms'] / m, 3) for m in k['medians_ms']])} of the "
+              f"bound; card: {card}")
+    print(f"DOUBLE keys: {n} rows ({len(F64_EDGES)} edge values, 10 % nulls) in three forms, "
+          f"alone and after rung 1's keys: partition ids equal across the forms, to the plain "
+          f"chain and to the numpy Murmur3 on the first 4096 rows; murmur3 launches "
+          f"{json.dumps(launches)}", flush=True)
+
+    # the columnar surface on rung 1's convertFromRows output
+    cols = list(back.columns)
+    valid3 = torch.arange(n, device="cuda") % 7 != 3
+    cols[3] = PortColumn(cols[3].dtype, cols[3].data, cols[3].validity & valid3, cols[3].offsets)
+    card_tbl = Table(cols)
+    cpu_tbl = table_from_numpy(table_to_numpy(card_tbl), device="cpu")
+    counts = [c.null_count() for c in card_tbl.columns]
+    if counts != [c.null_count() for c in cpu_tbl.columns] or counts[3] != n - int(valid3.sum()):
+        raise AssertionError(f"null_count on the card differs from the CPU: {counts}")
+    got = table_to_numpy(card_tbl.compact_validity())
+    want = table_to_numpy(cpu_tbl.compact_validity())
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not (same_array(g["data"], w["data"]) and same_array(g["validity"], w["validity"])):
+            raise AssertionError(f"compact_validity on the card differs from the CPU at column {i}")
+    kept = [i for i, g in enumerate(got) if g["validity"] is not None]
+    if kept != [3]:
+        raise AssertionError(f"compact_validity kept the masks of columns {kept}, not [3]")
+
+    # live_span_stats over a store_sales SF10 row group's JSON strings
+    with ParquetReader(ss_path) as r:
+        attrs = r.read_row_group(0).column(SS_COLUMNS.index("ss_attrs_json"))
+    keep = torch.from_numpy(np.random.default_rng(34).random(len(attrs)) > 0.5).cuda()
+    card_stats = [int(x) for x in strings.live_span_stats(attrs.offsets, keep)]
+    cpu_stats = [int(x) for x in strings.live_span_stats(attrs.offsets.cpu(), keep.cpu())]
+    if card_stats != cpu_stats:
+        raise AssertionError(f"live_span_stats on the card {card_stats} != CPU {cpu_stats}")
+    print(f"columnar surface: null_count {counts} and compact_validity (masks kept on "
+          f"{kept}) equal on card and CPU; live_span_stats of {len(attrs)} ss_attrs_json rows "
+          f"(half kept) {card_stats} equal on card and CPU", flush=True)
+    return launches, kernel
+
+
 def main() -> int:
     phase_t = [time.perf_counter()]
 
@@ -5417,7 +5578,7 @@ def main() -> int:
         raise AssertionError("partition ids out of range")
     a = full.columns[KEYS[0]].data[:4096].cpu().numpy()
     b = full.columns[KEYS[1]].data[:4096].cpu().numpy()
-    ref = murmur3_numpy_int64_pairs(a, b)
+    ref = murmur3_numpy_longs([a, b])
     ref_pids = ((ref.astype(np.int64) % NUM_PARTITIONS) + NUM_PARTITIONS) % NUM_PARTITIONS
     if not np.array_equal(pids[:4096].cpu().numpy(), ref_pids):
         raise AssertionError("partition ids differ from the numpy Murmur3 reference")
@@ -5593,16 +5754,21 @@ def main() -> int:
             counters, card, ss_path, q1_ctx, q5_ctx)["murmur3_chain"]
         del q1_ctx, q5_ctx
         phase_done("31 runtime-boundary faults")
+
+        # ---- 32. DOUBLE keys in the exact-bits form, the columnar surface, counted
+        dbl_launches, double_key_shape = double_keys_phase(counters, card, full, back, ss_path)
+        launches["double_keys"] = dbl_launches["murmur3_chain"]
+        phase_done("32 double keys and the columnar surface")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     on_exchange = ("rung 1", "q5_exchange", "mesh_executors", "sharded_stream", "serving",
-                   "faultinj")
+                   "faultinj", "double_keys")
     for path, count in launches.items():
         if (count >= 1) != (path in on_exchange):
             raise AssertionError(f"murmur3 launches on the {path} path: {count}")
 
-    # ---- 32. kernel numbers, card, verdict
+    # ---- 33. kernel numbers, card, verdict
     k = timings["keys"]
     print(json.dumps({"kernels": [{
         "name": "murmur3_chain",
@@ -5613,6 +5779,7 @@ def main() -> int:
         "launches_by_path": launches,
         "exchange_shape": {k: exchange_shape[k]
                            for k in ("ms", "medians_ms", "plain_ms", "bound_ms", "bytes")},
+        "double_key_shape": double_key_shape,
         "medians_ms": k["medians_ms"],
         "max_abs_err": max_err,
         "ms": k["ms"],

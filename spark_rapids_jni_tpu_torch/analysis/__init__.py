@@ -10,9 +10,19 @@ torch code; this package carries their torch counterparts
 
     python -m spark_rapids_jni_tpu_torch.analysis            # the port
     python -m spark_rapids_jni_tpu_torch.analysis ops/x.py --json
+    python -m spark_rapids_jni_tpu_torch.analysis --sarif          # CI annotations
+    python -m spark_rapids_jni_tpu_torch.analysis --include-tests  # + tests/test_torch_*.py
     # sprtcheck: disable=<rule> — <why>                       # inline opt-out
 """
 
-from .core import RULES, Finding, analyze, default_root, render_json, render_text  # noqa: F401
+from .core import (  # noqa: F401
+    RULES,
+    Finding,
+    analyze,
+    default_root,
+    render_json,
+    render_sarif,
+    render_text,
+)
 
 from . import rules as _rules  # noqa: F401  (registers the rule set)

@@ -7,7 +7,8 @@ registered under a kebab-case name. Findings are silenced inline, at
 the site: ``# sprtcheck: disable=rule1,rule2 — reason`` (same line, or
 the comment line directly above). The port keeps no baseline: its tree
 is clean or the gate fails. By default the analyzer scans the port's
-package only (``DEFAULT_PATHS``).
+package only (``DEFAULT_PATHS``); ``include_tests`` adds the port's own
+test files (``TEST_GLOB``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ast
 import contextlib
 import dataclasses
+import glob
 import hashlib
 import json
 import os
@@ -221,12 +223,17 @@ def default_root() -> str:
 
 # what a run with no paths scans: the port's package, nothing else
 DEFAULT_PATHS = ("spark_rapids_jni_tpu_torch",)
+# the port's own tests, which a run with no paths adds under include_tests
+TEST_GLOB = "tests/test_torch_*.py"
 
 
 def discover(
     root: str,
     paths: Optional[Sequence[str]] = None,
+    include_tests: bool = False,
 ) -> List[str]:
+    """The ``.py`` files under ``paths`` (default: the root), leaving
+    out every ``tests`` directory unless ``include_tests``."""
     roots = [os.path.join(root, p) for p in paths] if paths else [root]
     out = []
     for r in roots:
@@ -238,7 +245,7 @@ def discover(
                 d
                 for d in dirnames
                 if d not in _EXCLUDED_DIRS
-                and d != "tests"
+                and (include_tests or d != "tests")
             )
             for fn in sorted(filenames):
                 if fn.endswith(".py"):
@@ -343,17 +350,21 @@ def _write_cache(
 def analyze(
     root: str,
     paths: Optional[Sequence[str]] = None,
+    include_tests: bool = False,
     only_rules: Optional[Sequence[str]] = None,
     cache_path: Optional[str] = None,
 ) -> List[Finding]:
     """Run every registered rule over ``paths`` (default: the port's
-    package); returns sorted, suppression-filtered findings.
+    package, and with ``include_tests`` the port's test files); returns
+    sorted, suppression-filtered findings.
 
     ``cache_path`` arms the content-hash result cache."""
     from . import rules as _rules  # noqa: F401 — ensure registration
 
     root = os.path.abspath(root)
-    files = discover(root, paths or DEFAULT_PATHS)
+    files = discover(root, paths or DEFAULT_PATHS, include_tests)
+    if include_tests and not paths:
+        files = sorted(set(files) | set(glob.glob(os.path.join(root, TEST_GLOB))))
     modules = [SourceModule(root, p) for p in files]
     per_module_names = sorted(
         name for name in RULES if only_rules is None or name in only_rules
@@ -412,31 +423,87 @@ def analyze(
 # --------------------------------------------------------------------
 # rendering
 
-def render_text(findings: Sequence[Finding]) -> str:
+# ``new`` is every finding: the port keeps no baseline to grandfather
+# any (the JAX renderers' ``grandfathered`` and ``stale``)
+
+def render_text(new: Sequence[Finding]) -> str:
     out = []
-    for f in findings:
+    for f in new:
         out.append(f"{f.file}:{f.line}:{f.col + 1}: {f.rule}: {f.message}")
         if f.snippet:
             out.append(f"    {f.snippet}")
     counts: Dict[str, int] = {}
-    for f in findings:
+    for f in new:
         counts[f.rule] = counts.get(f.rule, 0) + 1
     summary = ", ".join(f"{k}={v}" for k, v in sorted(counts.items()))
-    if findings:
-        out.append(f"sprtcheck (port): {len(findings)} finding(s) [{summary}]")
+    if new:
+        out.append(f"sprtcheck (port): {len(new)} finding(s) [{summary}]")
     else:
         out.append("sprtcheck (port): clean")
     return "\n".join(out)
 
 
-def render_json(findings: Sequence[Finding]) -> str:
+def render_sarif(new: Sequence[Finding]) -> str:
+    """SARIF 2.1.0, the CI-annotation interchange format, as the JAX
+    package's ``render_sarif`` writes it, under the port's rule
+    catalog: each finding a result of level ``error``."""
+    from . import rules as _rules  # noqa: F401 — ensure registration
+
+    rule_ids = sorted({f.rule for f in new} | set(RULES))
+    rule_index = {rid: i for i, rid in enumerate(rule_ids)}
+    rules_meta = []
+    for rid in rule_ids:
+        r = RULES.get(rid)
+        meta = {
+            "id": rid,
+            "shortDescription": {"text": r.summary if r else "sprtcheck finding"},
+        }
+        if r and r.motivation:
+            meta["help"] = {"text": r.motivation}
+        rules_meta.append(meta)
+    results = []
+    for f in new:
+        region = {"startLine": max(f.line, 1), "startColumn": f.col + 1}
+        if f.snippet:
+            region["snippet"] = {"text": f.snippet}
+        results.append({
+            "ruleId": f.rule,
+            "ruleIndex": rule_index[f.rule],
+            "level": "error",
+            "message": {"text": f.message},
+            # a repo-relative URI, no uriBaseId: consumers resolve it
+            # against the checkout root
+            "locations": [{"physicalLocation": {
+                "artifactLocation": {"uri": f.file},
+                "region": region,
+            }}],
+        })
+    run = {
+        "tool": {"driver": {
+            "name": "sprtcheck (port)",
+            "informationUri": "docs/PORT_SPRTCHECK.md",
+            "rules": rules_meta,
+        }},
+        "results": results,
+    }
+    return json.dumps(
+        {
+            "$schema": "https://json.schemastore.org/sarif-2.1.0.json",
+            "version": "2.1.0",
+            "runs": [run],
+        },
+        indent=2,
+    )
+
+
+def render_json(new: Sequence[Finding]) -> str:
     return json.dumps(
         {
             "version": SCHEMA_VERSION,
-            "findings": [f.to_dict() for f in findings],
+            "findings": [f.to_dict() for f in new],
             "counts": {
-                r: sum(1 for f in findings if f.rule == r)
-                for r in sorted({f.rule for f in findings})
+                r: sum(1 for f in new if f.rule == r)
+                for r in sorted({f.rule for f in new})
             },
         },
         indent=2,

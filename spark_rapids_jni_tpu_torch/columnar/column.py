@@ -23,7 +23,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .dtypes import DType, STRING
+from .dtypes import BOOL8, DType, STRING
 
 
 def resolve_device(device) -> torch.device:
@@ -53,6 +53,20 @@ class Column:
         if self.is_varlen:
             return int(self.offsets.shape[0]) - 1
         return int(self.data.shape[0])
+
+    @property
+    def num_rows(self) -> int:
+        return len(self)
+
+    @property
+    def has_nulls(self) -> bool:
+        return self.validity is not None
+
+    # sprtcheck: host-side — the count is a Python int, read from the device
+    def null_count(self) -> int:
+        if self.validity is None:
+            return 0
+        return int((~self.validity).sum())
 
     @property
     def device(self) -> torch.device:
@@ -157,3 +171,8 @@ def make_string_column(
     data: torch.Tensor, offsets: torch.Tensor, validity: Optional[torch.Tensor] = None
 ) -> Column:
     return Column(STRING, data, validity, offsets)
+
+
+def bool_column(mask: torch.Tensor, validity: Optional[torch.Tensor] = None) -> Column:
+    """A BOOL8 column from a mask, stored as int8 0/1."""
+    return Column(BOOL8, mask.to(torch.int8), validity)

@@ -112,3 +112,8 @@ def DECIMAL64(precision: int, scale: int) -> DType:
         raise ValueError(f"DECIMAL64 precision must be in [1, 18], got {precision}")
     return DType("decimal", 64, precision, scale)
 
+
+# Max decimal precision per storage width (Spark's rules, as
+# cudf::detail::max_precision).
+MAX_PRECISION = {32: 9, 64: 18, 128: 38}
+

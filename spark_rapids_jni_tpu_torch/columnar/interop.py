@@ -11,6 +11,8 @@ column::
 with the layout of ``columnar/column.py``: fixed-width ``data`` is
 ``[n]`` (``[n, 2]`` int64 limbs for DECIMAL128), varlen ``data`` is the
 uint8 payload with int32 ``[n + 1]`` offsets, validity is bool ``[n]``.
+A float column whose ``data`` is a signed-integer array of its own
+width is the exact-bits form and keeps that integer storage.
 Nested columns (``columnar/nested.py``) nest the same dicts::
 
     {"list": child, "offsets": np.ndarray, "validity": ...}
@@ -63,7 +65,15 @@ def column_from_numpy(spec: Dict, device="cuda", pinned=False):
             v,
             _to_device(spec["offsets"], np.int32, dev, pinned),
         )
-    return Column(dtype, _to_device(spec["data"], dtype.np_dtype, dev, pinned), v)
+    data = spec["data"]
+    np_dtype = dtype.np_dtype
+    if (dtype.kind == "float" and isinstance(data, np.ndarray) and data.dtype.kind == "i"
+            and data.dtype.itemsize == np_dtype.itemsize):
+        # the exact-bits form (``spark_hash.f64_bits_column``): the
+        # integer storage carries doubleToLongBits, so keep the bits;
+        # converting the values would hash a different key
+        np_dtype = data.dtype
+    return Column(dtype, _to_device(data, np_dtype, dev, pinned), v)
 
 
 def table_from_numpy(columns: Sequence[Dict], device="cuda", pinned=False) -> Table:

@@ -18,6 +18,14 @@ from .column import Column, make_string_column
 _BUCKETS = tuple(8 * (2**i) for i in range(16))
 
 
+def live_span_stats(offsets: torch.Tensor, keep: torch.Tensor):
+    """(total_bytes, max_len) int32 0-d tensors of the varlen rows
+    selected by ``keep`` (bool [n]), left on the device."""
+    lens = (offsets[1:] - offsets[:-1]).to(torch.int32)
+    lens = torch.where(keep, lens, 0)
+    return lens.sum(dtype=torch.int32), torch.cat([lens, lens.new_zeros(1)]).max()
+
+
 def bucket_length(max_len: int) -> int:
     for b in _BUCKETS:
         if max_len <= b:

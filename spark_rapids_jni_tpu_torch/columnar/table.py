@@ -6,6 +6,8 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence
 
+import torch
+
 from .column import Column
 
 
@@ -41,6 +43,26 @@ class Table:
 
     def to_pylists(self) -> List[list]:
         return [c.to_pylist() for c in self.columns]
+
+    # sprtcheck: host-side — a collect boundary: one batched read of the null counts
+    def compact_validity(self, invalid_counts: Optional[Sequence[int]] = None) -> "Table":
+        """Drop all-True validity masks. ``invalid_counts`` — the null
+        count of each masked column, in column order — comes from a
+        caller that already read it; otherwise one batched host sync
+        reads it."""
+        masked = [i for i, c in enumerate(self.columns) if c.validity is not None]
+        if not masked:
+            return self
+        if invalid_counts is None:
+            invalid_counts = torch.stack(
+                [(~self.columns[i].validity).sum() for i in masked]
+            ).tolist()
+        cols = list(self.columns)
+        for bad, i in zip(invalid_counts, masked):
+            if not bad:
+                c = cols[i]
+                cols[i] = Column(c.dtype, c.data, None, c.offsets)
+        return Table(cols, self.names)
 
     @staticmethod
     def from_pylists(cols: Sequence[Sequence], dtypes, names=None, device="cuda") -> "Table":

@@ -58,6 +58,10 @@ class RowLayout:
     var_cols: tuple  # indices of variable-width columns
     fixed_only_row_size: int  # fixed tables: full row size (8-aligned)
 
+    @property
+    def num_columns(self) -> int:
+        return len(self.col_starts)
+
 
 def compute_row_layout(dtypes: Sequence[DType]) -> RowLayout:
     """Offsets per column using the reference's alignment rules

@@ -69,3 +69,28 @@ def pack_order_words(ops: Sequence[torch.Tensor]) -> torch.Tensor:
             acc = part if acc is None else acc | part
         words.append(acc)
     return torch.stack(words, dim=1)
+
+
+def _unsigned_order(x: torch.Tensor) -> torch.Tensor:
+    """Words whose signed order is ``x``'s unsigned order: a signed
+    integer word holds unsigned bits (the int64 words above; int32 for
+    uint32 words), so its sign bit is flipped."""
+    if x.dtype in _SIGNED:
+        return x ^ torch.iinfo(x.dtype).min
+    return x
+
+
+def words_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-wise a < b over [..., W] unsigned word rows (lexicographic)."""
+    a, b = _unsigned_order(a), _unsigned_order(b)
+    lt = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
+    eq = torch.ones(a.shape[:-1], dtype=torch.bool, device=a.device)
+    for w in range(a.shape[-1]):
+        aw, bw = a[..., w], b[..., w]
+        lt = lt | (eq & (aw < bw))
+        eq = eq & (aw == bw)
+    return lt
+
+
+def words_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a == b).all(dim=-1)

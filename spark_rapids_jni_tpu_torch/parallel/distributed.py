@@ -867,28 +867,6 @@ def distributed_sort(
     return ShardedTable(shards, mesh), out_occ, overflow
 
 
-
-# sprtcheck: host-side — a collect: one batched read of the null counts, after the program
-def compact_validity(table: Table, invalid_counts: Optional[Sequence[int]] = None) -> Table:
-    """Drop all-True validity masks (the JAX package's
-    ``Table.compact_validity``). ``invalid_counts`` — the null count of
-    each masked column, in column order — comes from a caller that
-    already synced it; otherwise one batched host sync reads it."""
-    masked = [i for i, c in enumerate(table.columns) if c.validity is not None]
-    if not masked:
-        return table
-    if invalid_counts is None:
-        invalid_counts = torch.stack(
-            [(~table.columns[i].validity).sum() for i in masked]
-        ).tolist()
-    cols = list(table.columns)
-    for bad, i in zip(invalid_counts, masked):
-        if not bad:
-            c = cols[i]
-            cols[i] = Column(c.dtype, c.data, None, c.offsets)
-    return Table(cols, table.names)
-
-
 def live_tail(result: Table, occupied) -> torch.Tensor:
     """int64 [1 + n_varlen] device vector: the live row count, then
     each varlen column's live payload bytes (null rows count 0) — what
@@ -1076,7 +1054,7 @@ def collect_table(result, occupied=None, overflow=None, n_dev: Optional[int] = N
     result, occupied, n_dev = _as_global(result, occupied, n_dev)
     if occupied is None and overflow is None:
         with _spans.span("collect_stage", "collect_table"):
-            return compact_validity(result)
+            return result.compact_validity()
     return collect_group_by(result, occupied, overflow, n_dev=n_dev)
 
 

@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from ..columnar.column import Column
+from ..columnar.column import Column, resolve_device
+from ..columnar.dtypes import FLOAT64
 from ..columnar.table import Table
 
 
@@ -85,12 +86,59 @@ def _split_words(x: torch.Tensor):
     return [(x & 0xFFFFFFFF).to(torch.int32), (x >> 32).to(torch.int32)]
 
 
+def _seed_lanes(seed, like: torch.Tensor) -> torch.Tensor:
+    """``seed`` (a uint32 value, or an int32 tensor of running hashes)
+    as an int32 tensor on ``like``'s device."""
+    if isinstance(seed, int):
+        seed = _i32(seed)
+    return torch.as_tensor(seed, dtype=torch.int32, device=like.device)
+
+
+def hash_int32(x: torch.Tensor, seed) -> torch.Tensor:
+    """Murmur3_x86_32.hashInt: one 4-byte block (``x``'s low 32 bits)."""
+    return fmix(mix_h1(_seed_lanes(seed, x), x.to(torch.int32)), 4)
+
+
+def hash_int64_words(lo: torch.Tensor, hi: torch.Tensor, seed) -> torch.Tensor:
+    """Murmur3_x86_32.hashLong given the two 32-bit words."""
+    h1 = mix_h1(_seed_lanes(seed, lo), lo.to(torch.int32))
+    return fmix(mix_h1(h1, hi.to(torch.int32)), 8)
+
+
+def hash_int64(x: torch.Tensor, seed) -> torch.Tensor:
+    """Murmur3_x86_32.hashLong: low word then high word."""
+    return hash_int64_words(*_split_words(x.to(torch.int64)), seed)
+
+
+def f64_bits_column(values, validity=None, device="cuda") -> Column:
+    """A DOUBLE key column in the JAX package's exact-bits form:
+    ``doubleToLongBits`` of ``values`` stored as int64 (-0.0 as 0, every
+    NaN as the canonical ``0x7FF8000000000000``). ``values`` is anything
+    ``torch.as_tensor`` takes, a tensor on any device included; the bits
+    come from a float64 view, exact for every double, subnormals too.
+    ``column_word_planes`` reads the int64 storage as these bits."""
+    dev = resolve_device(device)
+    v = torch.as_tensor(values, dtype=torch.float64).to(dev)
+    bits = torch.where(v == 0.0, 0, v.view(torch.int64))
+    bits = torch.where(torch.isnan(v), 0x7FF8000000000000, bits)
+    if validity is not None:
+        validity = torch.as_tensor(validity, dtype=torch.bool).to(dev)
+    return Column(FLOAT64, bits, validity)
+
+
 def column_word_planes(col: Column):
     """Lower one fixed-width column to its Murmur3 32-bit word planes:
     returns (list of int32 [n] tensors, fmix length). One definition
     shared by the plain chain and the kernel's lowering
     (``kernels/murmur3.table_plan``)."""
     dt = col.dtype
+    if dt.kind == "float" and not col.data.is_floating_point():
+        # the exact-bits form (f64_bits_column, or the JAX package's
+        # through interop): integer storage already holds the
+        # floatToIntBits / doubleToLongBits, normalized at construction
+        if dt.bits == 64:
+            return _split_words(col.data.to(torch.int64)), 8
+        return [col.data.to(torch.int32)], 4
     if dt.kind == "float":
         # floatToIntBits semantics: -0.0 -> 0.0, canonical NaN
         v = torch.where(col.data == 0.0, torch.zeros_like(col.data), col.data)
@@ -203,13 +251,8 @@ def column_hash_update(col: Column, seed):
         chars, nbytes = _dec128_byte_matrix(col)
         return hash_string_update(seed, chars, nbytes, col.validity)
     words, length = column_word_planes(col)
-    if isinstance(seed, int):
-        seed = _i32(seed)
-    h = torch.as_tensor(seed, dtype=torch.int32, device=col.device)
-    h1 = h
-    for w in words:
-        h1 = mix_h1(h1, w)
-    h1 = fmix(h1, length)
+    h = _seed_lanes(seed, col.data)
+    h1 = hash_int32(words[0], h) if length == 4 else hash_int64_words(*words, h)
     if col.validity is not None:
         return torch.where(col.validity, h1, h)  # nulls: hash unchanged
     return h1

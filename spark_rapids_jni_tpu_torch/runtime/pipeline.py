@@ -2698,7 +2698,7 @@ class Pipeline:
         sync), or hand back the padded pair."""
         from ..columnar.column import Column
         from ..columnar.table import Table
-        from ..parallel.distributed import _gather_live, compact_validity
+        from ..parallel.distributed import _gather_live
 
         if nested is not None:
             if not collect:
@@ -2727,7 +2727,7 @@ class Pipeline:
                 Column(c.dtype, c.data[:next(ends)], c.validity, c.offsets) if c.is_varlen else c
                 for c in out_tbl.columns
             ]
-            return compact_validity(Table(cols, out_tbl.names), sizes[:n_masked])
+            return Table(cols, out_tbl.names).compact_validity(sizes[:n_masked])
 
     def run(
         self, table, *, collect: bool = True, donate: bool = False,

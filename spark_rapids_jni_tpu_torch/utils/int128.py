@@ -54,6 +54,31 @@ def const(value: int):
     return (s64(v), s64(v >> 64))
 
 
+def _limb(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64)  # integer tensors keep their low 64 bits
+    return torch.tensor(s64(int(x)), dtype=torch.int64, device=device)
+
+
+def u128(lo, hi, device="cuda"):
+    """A u128 from its two limbs: integer tensors (their bits kept, as
+    int64) or Python ints (an int64 tensor on ``device``)."""
+    return (_limb(lo, device), _limb(hi, device))
+
+
+def from_int(value: int, shape=(), device="cuda"):
+    """``value`` mod 2^128 as limb tensors of ``shape`` on ``device``."""
+    lo, hi = const(value)
+    return (
+        torch.full(shape, lo, dtype=torch.int64, device=device),
+        torch.full(shape, hi, dtype=torch.int64, device=device),
+    )
+
+
+def zeros(shape, device="cuda"):
+    return from_int(0, shape, device)
+
+
 def mul64(a, b):
     """u64 x u64 -> u128 (full product), via 32-bit half products."""
     a0, a1 = a & M32, lsr(a, 32)

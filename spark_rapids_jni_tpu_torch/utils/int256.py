@@ -51,6 +51,16 @@ def const(value: int):
     return tuple(s64(v >> (64 * i)) for i in range(4))
 
 
+def from_int(value: int, shape=(), device="cuda"):
+    """``value`` mod 2^256 as four limb tensors of ``shape`` on ``device``."""
+    return tuple(torch.full(shape, limb, dtype=torch.int64, device=device)
+                 for limb in const(value))
+
+
+def zeros(shape=(), device="cuda"):
+    return from_int(0, shape, device)
+
+
 def is_neg(a):
     return a[3] < 0
 

@@ -6,6 +6,7 @@ taint model on single expressions; the rule table in
 docs/PORT_SPRTCHECK.md; and the port's own tree, which must be clean."""
 
 import ast
+import json
 import os
 import textwrap
 
@@ -175,6 +176,50 @@ def test_cli_exit_codes(tmp_path, capsys):
     assert main(["--list-rules"]) == 0
     out = capsys.readouterr().out
     assert "implicit-float-dtype" in out and "graph-capture-sync" in out
+
+
+def test_cli_sarif(tmp_path, capsys):
+    """--sarif: SARIF 2.1.0's required keys, one result for each finding
+    of a seeded bad file; exit 2 beside --json."""
+    src = CORPORA[("implicit-float-dtype", "fail")][1].replace(
+        "return torch.zeros(n, device=dev)",
+        "return torch.zeros(n, device=dev), torch.ones(n, device=dev)")
+    root = _corpus(tmp_path, "ops/means.py", src)
+    found = analyze(root, paths=["."])
+    assert len(found) == 2
+    capsys.readouterr()
+    assert main(["--root", root, "--sarif", "."]) == 1
+    doc = json.loads(capsys.readouterr().out)
+    assert doc["version"] == "2.1.0" and doc["$schema"].endswith("sarif-2.1.0.json")
+    (run,) = doc["runs"]
+    driver = run["tool"]["driver"]
+    assert driver["name"] and {r["id"] for r in driver["rules"]} == set(RULES)
+    assert len(run["results"]) == len(found)
+    for res, f in zip(run["results"], found):
+        assert res["ruleId"] == f.rule and res["message"]["text"] == f.message
+        assert driver["rules"][res["ruleIndex"]]["id"] == f.rule
+        loc = res["locations"][0]["physicalLocation"]
+        assert loc["artifactLocation"]["uri"] == f.file
+        assert loc["region"]["startLine"] == f.line
+    assert main(["--root", root, "--json", "--sarif", "."]) == 2
+
+
+def test_include_tests_changes_the_scan(tmp_path):
+    """Tests stay out of a scan unless --include-tests; with it and no
+    path, the port's own tests/test_torch_*.py join the package."""
+    bad = CORPORA[("dispatch-sync-free", "fail")][1]
+    root = _corpus(tmp_path, "spark_rapids_jni_tpu_torch/runtime/ok.py", "x = 1\n")
+    for rel in ("tests/test_torch_x.py", "tests/test_other.py",
+                "spark_rapids_jni_tpu_torch/tests/helper.py"):
+        _corpus(tmp_path, rel, bad)
+    assert analyze(root) == [] and main(["--root", root]) == 0
+    found = analyze(root, include_tests=True)
+    assert {f.file for f in found} == {
+        "tests/test_torch_x.py", "spark_rapids_jni_tpu_torch/tests/helper.py"}
+    assert main(["--root", root, "--include-tests"]) == 1
+    # with a path, every tests directory under it
+    assert analyze(root, paths=["."]) == []
+    assert len(analyze(root, paths=["."], include_tests=True)) == 3
 
 
 def test_result_cache_cold_and_warm(tmp_path, monkeypatch):
