@@ -196,10 +196,22 @@ Phases, each fatal on failure:
      Table.compact_validity and null_count on rung 1's convertFromRows
      output and live_span_stats on a store_sales row group, card
      against CPU
-  33. one JSON line of kernel numbers (with murmur3's launches on every
+  33. the JNI library's native backend (kernels/csrc/host/native_backend.cpp
+     over the CUDA plugin csrc/native/kernels.cu): native/tests/
+     backend_smoke.cpp run over the CUDA plugin as a process with no
+     Python (--bench), the Python backend's cast beside it; then, in this
+     process, every native op through the accelerated SprtBackend
+     pointer, counted: the casts at 1 Mi rows (phase 11's integers, phase
+     14's toFloat axis, phase 13's quirks and ANSI errors), DECIMAL128
+     add, subtract and multiply over 4 Mi q1 rows, JCUDF rows of two
+     schemas at 4 Mi rows both ways; every result bit-exact against the
+     port's torch op, the live bytes back to 0, the backend unregistered;
+     each kernel family timed against its plain version and byte bound
+  34. one JSON line of kernel numbers (murmur3 with its launches on every
      path: rung 1, the exchange paths 26-28, serving, the injector's and
-     the DOUBLE keys' launch it, the others 0), the card line, then the
-     verdict
+     the DOUBLE keys' launch it, the others 0; the native backend's five
+     kernels with their launches on phase 33's path), the card line,
+     then the verdict
 
 Exits non-zero, printing no verdict, without a card or without the port
 beside it. Data is made from fixed seeds.
@@ -4937,29 +4949,6 @@ JNI_RLIKE = r'"channel": "web"'
 JNI_EXTRACT = r'"channel": "([a-z]+)"'
 
 
-def jni_dispatch(backend, op, args):
-    """One call through the C pointer ``SprtBackend.call``, the path the
-    JNI entry points take (run_op). Returns (rc, handles or values,
-    error, error_row, error_str); the C strings are freed here."""
-    import ctypes
-
-    from spark_rapids_jni_tpu_torch.runtime import jni_backend as jb
-
-    arr = (ctypes.c_long * len(args))(*[int(a) for a in args])
-    res = jb.SprtCallResult()
-    res.error_row = -1
-    rc = backend.contents.call(op.encode(), arr, len(args), ctypes.byref(res))
-    texts = []
-    for field in ("error", "error_str"):
-        slot = ctypes.cast(ctypes.addressof(res) + getattr(jb.SprtCallResult, field).offset,
-                           ctypes.POINTER(ctypes.c_void_p))
-        texts.append(None if not slot[0] else ctypes.string_at(slot[0]).decode())
-        if slot[0]:
-            jb._libc.free(ctypes.c_void_p(slot[0]))
-            slot[0] = None
-    return rc, [res.handles[i] for i in range(res.n_handles)], texts[0], res.error_row, texts[1]
-
-
 def same_buffers(a, b) -> bool:
     """Exact equality of two columns, tables or nested columns: dtype,
     data, validity, offsets and children."""
@@ -5024,7 +5013,7 @@ def jni_phase(counters, card, ss_path, q1_ctx, full):
         return h
 
     def call(op, *args):
-        rc, out, err, _row, _s = jni_dispatch(backend, op, args)
+        rc, out, err, _row, _s = jb.call_backend(backend, op, args)
         if rc != 0:
             raise AssertionError(f"jni {op} failed through the C dispatch: {err}")
         if op not in jb.SCALAR_OPS:
@@ -5082,7 +5071,7 @@ def jni_phase(counters, card, ss_path, q1_ctx, full):
 
     def dispatch_only(op, args):
         def run():
-            rc, out, err, _row, _s = jni_dispatch(backend, op, args)
+            rc, out, err, _row, _s = jb.call_backend(backend, op, args)
             if rc != 0:
                 raise AssertionError(f"jni {op}: {err}")
             for h in out:
@@ -5113,7 +5102,7 @@ def jni_phase(counters, card, ss_path, q1_ctx, full):
     n_calls = 2000
     t = time.perf_counter()
     for _ in range(n_calls):
-        jni_dispatch(backend, "test.row_count", [qty_h])
+        jb.call_backend(backend, "test.row_count", [qty_h])
     per_call_us = (time.perf_counter() - t) / n_calls * 1e6
     t = time.perf_counter()
     for _ in range(n_calls):
@@ -5174,7 +5163,7 @@ def jni_phase(counters, card, ss_path, q1_ctx, full):
         want_err = (e.row_with_error, e.string_with_error)
     else:
         raise AssertionError("jni ANSI: the direct cast did not raise")
-    rc, _, err, err_row, err_str = jni_dispatch(backend, "cast.to_integer", [put(bad), 1, 1, 4])
+    rc, _, err, err_row, err_str = jb.call_backend(backend, "cast.to_integer", [put(bad), 1, 1, 4])
     if rc != 1 or (err_row, err_str) != want_err or want_err[0] != bad_row:
         raise AssertionError(f"jni ANSI: rc {rc}, row {err_row}, string {err_str!r}; "
                              f"direct {want_err}")
@@ -5470,6 +5459,329 @@ def double_keys_phase(counters, card, full, back, ss_path, n=N_MAIN):
     return launches, kernel
 
 
+# ---- the JNI library's native backend (phase 33) ----
+
+NATIVE_DEC_SCALES = {"add": (2, 2, 2), "sub": (2, 2, 2), "mul": (2, 2, 4)}  # q1's
+NATIVE_DEC_OPS = {"add": "decimal.add128", "sub": "decimal.subtract128",
+                  "mul": "decimal.multiply128"}
+# 32-bit integer operations a row needs at least: a 128-bit add and a
+# compare; sixteen 32x32 partial products (lo, hi) and their sums
+NATIVE_DEC_ROW_OPS = {"add": 16, "sub": 16, "mul": 96}
+SMOKE_STRINGS = ["12", " 42 ", "abc", None, "-7"]  # backend_smoke's bench column
+
+
+def int_cast_spec(n, seed=12):
+    """Phase 11's integer column at ``n`` rows: its hand-made cases
+    (INT_CASES) and random integers in whitespace, 5 % nulls besides."""
+    rng = np.random.default_rng(seed)
+    ws = np.array(["", " ", "  ", "\t", "\n", "\r"])
+    ints = [f"{ws[a]}{v}{ws[b]}" for a, b, v in zip(
+        rng.integers(0, 6, n), rng.integers(0, 6, n), rng.integers(-(10**12), 10**12, n))]
+    take = rng.random(n) < 0.5
+    case = np.array(INT_CASES, dtype=object)[rng.integers(0, len(INT_CASES), n)]
+    return string_spec_from_list([c if t else r for c, t, r in zip(case, take, ints)], rng, 0.05)
+
+
+def decimal_limb_args(data, scale, valid=None):
+    """``test.make_decimal_column``'s arguments for DECIMAL(p,2) int64
+    storage as DECIMAL128 limbs."""
+    data = np.asarray(data, np.int64)
+    parts = [np.array([len(data), scale]), data, data >> 63]
+    if valid is not None:
+        parts.append(valid.astype(np.int64))
+    return np.concatenate(parts)
+
+
+def flat_tensors(x):
+    """The tensors (and Nones) of nested tuples and lists, in order."""
+    if isinstance(x, (tuple, list)):
+        return [t for item in x for t in flat_tensors(item)]
+    return [x]
+
+
+def per_call_ms(call, reps=200):
+    """Mean host-clock ms of ``call`` over ``reps`` calls, after one."""
+    call()
+    t = time.perf_counter()
+    for _ in range(reps):
+        call()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def native_backend_phase(card):
+    """Phase 33: the JNI library's native backend
+    (kernels/csrc/host/native_backend.cpp over the CUDA plugin
+    csrc/native/kernels.cu). (a) native/tests/backend_smoke.cpp, linked
+    with no libpython, run as a subprocess over the CUDA plugin with
+    --bench; the Python backend's cast.to_integer + release on the same
+    column timed beside it, and both backends through ctypes on 1024
+    rows. (b) The backend registered in this process (init_native), then
+    every native op through the accelerated SprtBackend pointer at full
+    width, counted: the integer casts over phase 11's integer column and
+    the FLOAT64 cast over phase 14's toFloat axis at 1 Mi rows, the ANSI
+    errors (over those and phase 13's quirk strings), DECIMAL128 add,
+    subtract and multiply over 4 Mi q1 rows at q1's scales, rows of
+    (INT64, INT32, INT8) and of a wider schema at 4 Mi rows both ways;
+    each result copied out and held to the port's torch op on the same
+    inputs on the card, bit for bit; the live-bytes counter back to 0
+    after the releases; the backend unregistered at the end. Then each
+    family's kernel timed through its wrapper (median of 25 launches in
+    three loops) against its plain version and its byte bound. Returns
+    the kernel entries of the JSON line."""
+    import ctypes
+
+    from spark_rapids_jni_tpu_torch import FLOAT64, INT8, INT32, INT64, Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.interop import column_from_numpy
+    from spark_rapids_jni_tpu_torch.kernels import _build, native
+    from spark_rapids_jni_tpu_torch.ops import cast_string, row_conversion
+    from spark_rapids_jni_tpu_torch.runtime import errors
+    from spark_rapids_jni_tpu_torch.runtime import jni_backend as jb
+
+    t0 = time.perf_counter()
+    _build.build(native.plugin_name("cuda"), "backend_smoke", "sprt_jni")
+    plugin = native.plugin_path("cuda")
+    exe = _build.library_path("backend_smoke")
+    build_s = time.perf_counter() - t0
+
+    # (a) the dispatch from a process with no Python
+    needed = subprocess.run(["readelf", "-d", exe], capture_output=True, text=True).stdout
+    if "python" in needed.lower():
+        raise AssertionError(f"backend_smoke links libpython: {needed}")
+    proc = subprocess.run([exe, plugin, os.path.join(ROOT, "build"), "device=i:0", "--bench"],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0 or "no Python in process" not in proc.stdout:
+        raise AssertionError(f"backend_smoke exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    bench = next(json.loads(line) for line in proc.stdout.splitlines()
+                 if "cpp_dispatch_per_call" in line)
+
+    lib = jb.register(device="cuda")  # the default backend: what the native one declines
+    jb.init_native(device="cuda")
+    lib.sprt_get_accel_backend.restype = ctypes.POINTER(jb.SprtBackend)
+    lib.sprt_get_backend.restype = ctypes.POINTER(jb.SprtBackend)
+    accel, python = lib.sprt_get_accel_backend(), lib.sprt_get_backend()
+    handles = []
+
+    def call(op, args, backend=accel, keep=True):
+        rc, out, err, row, s = jb.call_backend(backend, op, args)
+        if rc != 0:
+            raise AssertionError(f"native {op}: rc {rc}, {err}")
+        if keep and op not in jb.SCALAR_OPS:
+            handles.extend(out)
+        return out
+
+    def cast_release(backend, h):
+        def run():
+            (out,) = call("cast.to_integer", [h, 0, 1, 3], backend, keep=False)
+            call("handle.release", [out], backend, keep=False)
+        return run
+
+    dispatch = {"cpp_dispatch_per_call_ms": bench["ms"]}
+    for rows in (len(SMOKE_STRINGS), 1024):
+        values = (SMOKE_STRINGS * (rows // len(SMOKE_STRINGS) + 1))[:rows]
+        spec = string_spec_from_list(values)
+        py_h = jb.REGISTRY.put(column_from_numpy(spec, "cuda"))
+        nat_h = call("test.make_string_column", jb.pack_string_rows(
+            spec["data"], spec["offsets"], spec["validity"]))[0]
+        dispatch[f"python_{rows}_rows_ms"] = per_call_ms(cast_release(python, py_h))
+        dispatch[f"native_ctypes_{rows}_rows_ms"] = per_call_ms(cast_release(accel, nat_h))
+        jb.REGISTRY.release(py_h)
+    print(f"native backend (a): backend_smoke over {os.path.basename(plugin)} exit 0, no "
+          f"libpython, 'no Python in process' (built in {build_s:.1f} s); cast.to_integer + "
+          f"handle.release per call, host clock: {json.dumps(dispatch)}; card: {card}",
+          flush=True)
+
+    # (b) the inputs, made on the host, and the same on the card as port columns
+    ints = int_cast_spec(N_WIDE)
+    floats, _oracle = float_axis_strings(N_WIDE, seed=21)
+    quirks = float_spec(N_MIXED, seed=33)
+    rng = np.random.default_rng(42)
+    q1 = q1_batch_arrays(rng, N_MAIN)
+    price, one_minus = q1["price"], 100 - q1["disc"]
+    dec_valid = rng.random(N_MAIN) > 0.02
+    i64, i32 = q1["price"] * 7 - 5, q1["ship"]
+    i8 = (q1["qty"] % 256 - 128).astype(np.int8)
+    v8 = rng.random(N_MAIN) > 0.1
+    port = {k: column_from_numpy(s, "cuda") for k, s in
+            (("ints", ints), ("floats", floats), ("quirks", quirks))}
+    dev = {k: torch.from_numpy(v).cuda() for k, v in
+           (("price", price), ("one_minus", one_minus), ("dec_valid", dec_valid), ("i64", i64),
+            ("i32", i32), ("i8", i8), ("v8", v8))}
+    torch.cuda.synchronize()
+
+    def limbs(x):
+        return torch.stack([x, x >> 63], dim=-1)
+
+    # the factories (not counted: they launch no kernel)
+    h = {k: call("test.make_string_column", jb.pack_string_rows(
+        s["data"], s["offsets"], s["validity"]))[0]
+        for k, s in (("ints", ints), ("floats", floats), ("quirks", quirks))}
+    h["a"] = call("test.make_decimal_column", decimal_limb_args(price, 2, dec_valid))[0]
+    h["b"] = call("test.make_decimal_column", decimal_limb_args(one_minus, 2))[0]
+    h["i64"] = call("test.make_long_column", np.concatenate([[N_MAIN], i64]))[0]
+    h["i32"] = call("test.make_int_column", np.concatenate([[N_MAIN, 3], i32]))[0]
+    h["i8"] = call("test.make_int_column", np.concatenate([[N_MAIN, 1], i8, v8]))[0]
+
+    # the main path, counted
+    lib.sprt_native_reset_launches()
+    out = {}
+    t = time.perf_counter()
+    for bits, tid in ((32, 3), (64, 4)):
+        out[f"int{bits}"] = call("cast.to_integer", [h["ints"], 0, 1, tid])[0]
+    out["int32_nostrip"] = call("cast.to_integer", [h["ints"], 0, 0, 3])[0]
+    out["float64"] = call("cast.to_float", [h["floats"], 0, 10])[0]
+    out["quirks"] = call("cast.to_float", [h["quirks"], 0, 10])[0]
+    ansi = {name: jb.call_backend(accel, op, args) for name, op, args in (
+        ("int64", "cast.to_integer", [h["ints"], 1, 1, 4]),
+        ("float64", "cast.to_float", [h["quirks"], 1, 10]))}
+    for op in NATIVE_DEC_OPS:
+        out[f"dec_{op}"] = call(NATIVE_DEC_OPS[op], [h["a"], h["b"], NATIVE_DEC_SCALES[op][2]])
+    narrow = call("test.make_table", [h["i64"], h["i32"], h["i8"]])[0]
+    wide_cols = [out["dec_mul"][1], h["i64"], h["i32"], h["i8"], out["dec_mul"][0], h["a"]]
+    wide = call("test.make_table", wide_cols)[0]
+    out["rows_narrow"] = call("row_conversion.to_rows", [narrow])
+    out["rows_wide"] = call("row_conversion.to_rows_fixed_width", [wide])
+    narrow_ids, wide_ids = [4, 3, 1], [27, 4, 3, 1, 8, 27]
+    out["back_narrow"] = call("row_conversion.from_rows",
+                              [out["rows_narrow"][0], *narrow_ids, 0, 0, 0])
+    out["back_wide"] = call("row_conversion.from_rows_fixed_width",
+                            [out["rows_wide"][0], *wide_ids, -4, 0, 0, 0, 0, -2])
+    main_s = time.perf_counter() - t
+    counts = jb.native_counts(lib)
+    launches = {k: v for k, v in counts.items() if k != "live_bytes"}
+    if any(v < 1 for v in launches.values()):
+        raise AssertionError(f"the native main path left a kernel unlaunched: {launches}")
+
+    # every result against the port's torch op on the same inputs
+    def got(handle):
+        return jb.native_column(lib, handle, "cuda")
+
+    def same(label, g, want_data, want_valid):
+        wv = want_valid if want_valid is not None else torch.ones(
+            g.data.shape[0], dtype=torch.bool, device="cuda")
+        gd, wd = g.data.contiguous(), want_data.contiguous()
+        if not (torch.equal(gd.view(torch.uint8), wd.to(gd.dtype).view(torch.uint8))
+                and torch.equal(g.validity_or_true(), wv)):
+            raise AssertionError(f"native {label} differs from the port's torch op")
+
+    ints, floats, quirks = port["ints"], port["floats"], port["quirks"]
+    casts = {  # each native cast's label -> the port's op on the same column
+        "int32": lambda: cast_string.string_to_integer(ints, INT32, strip=True),
+        "int64": lambda: cast_string.string_to_integer(ints, INT64, strip=True),
+        "int32_nostrip": lambda: cast_string.string_to_integer(ints, INT32, strip=False),
+        "float64": lambda: cast_string.string_to_float(floats, FLOAT64),
+        "quirks": lambda: cast_string.string_to_float(quirks, FLOAT64),
+    }
+    for label, cast in casts.items():
+        want, g = cast(), got(out[label])
+        if (g.validity is None) != (want.validity is None):
+            raise AssertionError(f"native {label}: a mask where the port has none, or back")
+        same(label, g, want.data, want.validity)
+    ansi_casts = {
+        "int64": lambda: cast_string.string_to_integer(ints, INT64, ansi_mode=True),
+        "float64": lambda: cast_string.string_to_float(quirks, FLOAT64, ansi_mode=True),
+    }
+    for name, cast in ansi_casts.items():
+        try:
+            cast()
+        except errors.CastException as e:
+            want_err = (e.row_with_error, e.string_with_error)
+        else:
+            raise AssertionError(f"the port's ANSI {name} cast raised nothing")
+        rc, _, _, row, s = ansi[name]
+        if rc != 1 or (row, s) != want_err:
+            raise AssertionError(f"native ANSI {name}: rc {rc}, row {row} {s!r}; port {want_err}")
+    checked = len(casts) + len(ansi_casts)
+    a, b = limbs(dev["price"]), limbs(dev["one_minus"])
+    for op in NATIVE_DEC_OPS:
+        wo, wl, wv = native.decimal128_plain(op, a, b, dev["dec_valid"], None,
+                                             *NATIVE_DEC_SCALES[op])
+        same(f"decimal {op} overflow", got(out[f"dec_{op}"][0]), wo, wv)
+        same(f"decimal {op} result", got(out[f"dec_{op}"][1]), wl, wv)
+        checked += 2
+    narrow_t = Table([Column(INT64, dev["i64"]), Column(INT32, dev["i32"]),
+                      Column(INT8, dev["i8"], dev["v8"])])
+    wide_t = Table([got(x) for x in wide_cols])
+    for label, tbl, handles_ in (("narrow", narrow_t, out["rows_narrow"]),
+                                 ("wide", wide_t, out["rows_wide"])):
+        want = row_conversion.convert_to_rows(tbl)
+        g = [got(x) for x in handles_]
+        if len(g) != len(want) or not all(torch.equal(x.data, w.data) and
+                                          torch.equal(x.offsets, w.offsets)
+                                          for x, w in zip(g, want)):
+            raise AssertionError(f"native rows ({label}) differ from convertToRows")
+        back = row_conversion.convert_from_rows(want, [c.dtype for c in tbl.columns])
+        for i, (x, w) in enumerate(zip(out[f"back_{label}"], back.columns)):
+            same(f"from rows ({label}) column {i}", got(x), w.data, w.validity)
+        checked += 1 + len(back.columns)
+    row_bytes = {k: int(got(out[k][0]).data.numel()) for k in ("rows_narrow", "rows_wide")}
+
+    for x in handles:
+        call("handle.release", [x], keep=False)
+    live = jb.native_counts(lib)["live_bytes"]
+    if live != 0:
+        raise AssertionError(f"{live} device bytes live after every handle's release")
+    jb.uninit_native()
+    if lib.sprt_get_accel_backend():
+        raise AssertionError("the native backend is still registered")
+    print(f"native backend (b): {checked} results bit-exact against the port's torch ops "
+          f"({N_WIDE} cast rows, {N_MAIN} decimal and row rows; rows of {row_bytes} bytes); "
+          f"main path {main_s:.2f} s, kernel launches {json.dumps(launches)}; ANSI errors "
+          f"{json.dumps({k: v[3] for k, v in ansi.items()})}; {len(handles)} handles released, "
+          f"live bytes 0; unregistered; card: {card}", flush=True)
+
+    # each family's kernel through its wrapper, on torch's stream
+    ic, fc = ints, floats
+    src = "spark_rapids_jni_tpu_torch/kernels/csrc/native/kernels.cu"
+    shapes = {
+        "cast_integer": (
+            lambda: native.cast_integer(ic.data, ic.offsets, ic.validity, 64, False, True),
+            lambda: native.cast_integer_plain(ic.data, ic.offsets, ic.validity, 64, False, True),
+            ic.data.numel() + 4 * ic.offsets.numel() + N_WIDE + N_WIDE * 9 + 8, 0),
+        "cast_float64": (
+            lambda: native.cast_float64(fc.data, fc.offsets, fc.validity),
+            lambda: native.cast_float64_plain(fc.data, fc.offsets, fc.validity),
+            fc.data.numel() + 4 * fc.offsets.numel() + N_WIDE * 9 + 8, 0),
+        "decimal128": (
+            lambda: native.decimal128("mul", a, b, dev["dec_valid"], None, 2, 2, 4),
+            lambda: native.decimal128_plain("mul", a, b, dev["dec_valid"], None, 2, 2, 4),
+            N_MAIN * (32 + 1 + 16 + 1 + 1), N_MAIN * NATIVE_DEC_ROW_OPS["mul"]),
+        "to_rows": (
+            lambda: native.to_rows(wide_t.columns),
+            lambda: native.to_rows_plain(wide_t.columns),
+            sum(c.data.numel() * c.data.element_size() + (0 if c.validity is None else N_MAIN)
+                for c in wide_t.columns) + row_bytes["rows_wide"], 0),
+    }
+    wide_rows = native.to_rows(wide_t.columns)
+    wide_types = [c.dtype for c in wide_t.columns]
+    shapes["from_rows"] = (
+        lambda: native.from_rows(wide_rows, wide_types),
+        lambda: native.from_rows_plain(wide_rows, wide_types),
+        row_bytes["rows_wide"] + sum(c.data.numel() * c.data.element_size() + N_MAIN
+                                     for c in wide_t.columns), 0)
+    entries = []
+    for name, (kernel, plain, nbytes, ops) in shapes.items():
+        pairs = list(zip(flat_tensors(kernel()), flat_tensors(plain())))
+        torch.cuda.synchronize()
+        for u, w in pairs:
+            if (u is None) != (w is None) or (u is not None and not torch.equal(
+                    u.contiguous().reshape(-1).view(torch.uint8),
+                    w.to(u.dtype).contiguous().reshape(-1).view(torch.uint8))):
+                raise AssertionError(f"native kernel {name} differs from its plain version")
+        medians = launch_medians(kernel)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+        entries.append({
+            "name": f"native_{name}", "route": "cuda", "source": src,
+            "replaces": native.REPLACES[name], "launches": launches[name],
+            "max_abs_err": 0, "ms": float(np.median(medians)), "medians_ms": medians,
+            "plain_ms": time_ms(plain, 5), "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+            "bytes": nbytes,
+        })
+        print(f"native kernel [{name}]: {json.dumps(entries[-1])}; card: {card}", flush=True)
+    return entries
+
+
 def main() -> int:
     phase_t = [time.perf_counter()]
 
@@ -5759,6 +6071,10 @@ def main() -> int:
         dbl_launches, double_key_shape = double_keys_phase(counters, card, full, back, ss_path)
         launches["double_keys"] = dbl_launches["murmur3_chain"]
         phase_done("32 double keys and the columnar surface")
+
+        # ---- 33. the JNI library's native backend, counted
+        native_entries = native_backend_phase(card)
+        phase_done("33 native backend")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5768,7 +6084,7 @@ def main() -> int:
         if (count >= 1) != (path in on_exchange):
             raise AssertionError(f"murmur3 launches on the {path} path: {count}")
 
-    # ---- 33. kernel numbers, card, verdict
+    # ---- 34. kernel numbers, card, verdict
     k = timings["keys"]
     print(json.dumps({"kernels": [{
         "name": "murmur3_chain",
@@ -5787,7 +6103,7 @@ def main() -> int:
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": None,
-    }]}))
+    }] + native_entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

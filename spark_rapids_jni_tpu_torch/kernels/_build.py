@@ -15,13 +15,24 @@ the host C++ compiler; ``native/``'s own Makefile is not used:
   machine provides them (``describe_host_libraries`` says which branch
   was taken);
 - ``sprt_jni``: the JNI dispatch library, the counterpart of the
-  Makefile's ``jni`` target without its PJRT half: ``native/jni/``'s
-  dispatch table, its ten ``*Jni.cpp`` bindings, ``embed_python.cpp``
-  and ``native/parquet_footer.cpp``, compiled against
-  ``native/jni/jni_stub`` and linked with ``-ldl``. ``pjrt_backend.cpp``
-  and ``pjrt/pjrt_executor.cpp`` need the PJRT C API header of an XLA
-  install, so the port leaves them out and defines their one symbol in
-  ``csrc/host/pjrt_absent.cpp``.
+  Makefile's ``jni`` target with the port's native backend in place of
+  its PJRT half: ``native/jni/``'s dispatch table, its ten ``*Jni.cpp``
+  bindings, ``embed_python.cpp`` and ``native/parquet_footer.cpp``,
+  compiled against ``native/jni/jni_stub`` with
+  ``csrc/host/native_backend.cpp`` (which defines
+  ``sprt_pjrt_backend_init`` over a kernel plugin it dlopens) and linked
+  with ``-ldl``, never with the CUDA runtime;
+- ``sprt_native_host``: the native backend's host plugin
+  (``csrc/native/host_plugin.cpp``, ``-ffp-contract=off``), which tests
+  load in place of the CUDA plugin;
+- ``backend_smoke``: an executable, ``native/tests/backend_smoke.cpp``
+  as it is, linked with ``native/jni/dispatch.cpp`` and the native
+  backend and ``-ldl``: the JNI dispatch driven from a process with no
+  Python.
+
+``NVCC_SOURCES`` names the CUDA sources outside ``csrc/*.cu``: the
+native backend's CUDA plugin ``sprt_native_cuda``
+(``csrc/native/kernels.cu``, ``--fmad=false``).
 
 Libraries land in ``build/spark_rapids_jni_tpu_torch/`` beside the
 package, named by a hash of the sources, headers and flags, so an edited
@@ -67,22 +78,41 @@ _JNI_BINDINGS = (
     "ZOrderJni.cpp", "ParquetFooterJni.cpp", "RegexJni.cpp", "TestSupportJni.cpp",
     "RmmSparkJni.cpp", "ProfilerJni.cpp",
 )
+_NATIVE_BACKEND = os.path.join(SRC_DIR, "host", "native_backend.cpp")
+_PLUGIN_DIR = os.path.join(SRC_DIR, "native")
 HOST_SOURCES["sprt_jni"] = (
     os.path.join(_JNI, "dispatch.cpp"),
     *(os.path.join(_JNI, f) for f in _JNI_BINDINGS),
     os.path.join(_JNI, "embed_python.cpp"),
     os.path.join(_NATIVE, "parquet_footer.cpp"),
-    os.path.join(SRC_DIR, "host", "pjrt_absent.cpp"),
+    _NATIVE_BACKEND,
 )
-HOST_HEADERS = {
+HOST_SOURCES["sprt_native_host"] = (os.path.join(_PLUGIN_DIR, "host_plugin.cpp"),)
+HOST_SOURCES["backend_smoke"] = (
+    os.path.join(_NATIVE, "tests", "backend_smoke.cpp"),
+    os.path.join(_JNI, "dispatch.cpp"),
+    _NATIVE_BACKEND,
+)
+NVCC_SOURCES = {"sprt_native_cuda": (os.path.join(_PLUGIN_DIR, "kernels.cu"),)}
+# executables: no lib prefix, no .so, no -shared
+EXECUTABLES = frozenset({"backend_smoke"})
+_PLUGIN_HEADERS = (
+    os.path.join(_PLUGIN_DIR, "sprt_plugin.h"),
+    os.path.join(_PLUGIN_DIR, "sprt_rowops.h"),
+)
+_JNI_HEADERS = (
+    os.path.join(_JNI, "sprt_jni_common.hpp"),
+    os.path.join(_JNI, "jni_stub", "jni.h"),
+)
+HEADERS = {
     "sparkpf": (os.path.join(_NATIVE, "thrift_compact.hpp"),),
-    "sprt_jni": (
-        os.path.join(_JNI, "sprt_jni_common.hpp"),
-        os.path.join(_JNI, "jni_stub", "jni.h"),
-        os.path.join(_NATIVE, "thrift_compact.hpp"),
-    ),
+    "sprt_jni": _JNI_HEADERS + (os.path.join(_NATIVE, "thrift_compact.hpp"),) + _PLUGIN_HEADERS,
+    "sprt_native_host": _PLUGIN_HEADERS,
+    "sprt_native_cuda": _PLUGIN_HEADERS,
+    "backend_smoke": _JNI_HEADERS + _PLUGIN_HEADERS,
 }
 HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
+_JNI_INCLUDES = ("-I", os.path.join(_JNI, "jni_stub"), "-I", _JNI)
 # zlib's declarations for a machine with libz.so.1 but no zlib.h
 HOST_INCLUDE = os.path.join(SRC_DIR, "host_include")
 
@@ -112,12 +142,13 @@ _LIBS: Dict[str, ctypes.CDLL] = {}  # guarded by _LOCK
 
 def sources(name: str) -> Tuple[str, ...]:
     """The source files of library ``name``."""
-    return HOST_SOURCES.get(name) or (os.path.join(SRC_DIR, f"{name}.cu"),)
+    return (HOST_SOURCES.get(name) or NVCC_SOURCES.get(name)
+            or (os.path.join(SRC_DIR, f"{name}.cu"),))
 
 
 def kernel_sources():
-    """Names of the CUDA kernel sources under ``csrc/``."""
-    return sorted(f[:-3] for f in os.listdir(SRC_DIR) if f.endswith(".cu"))
+    """Names of the CUDA sources: ``csrc/*.cu`` and ``NVCC_SOURCES``."""
+    return sorted([f[:-3] for f in os.listdir(SRC_DIR) if f.endswith(".cu")] + list(NVCC_SOURCES))
 
 
 def _nvcc() -> str:
@@ -205,10 +236,16 @@ def describe_host_libraries() -> str:
 
 def _flags(name: str):
     """(flags before the sources, flags after them) of library ``name``."""
+    if name in NVCC_SOURCES:
+        return NVCC_FLAGS + ("--fmad=false",), ()
     if name not in HOST_SOURCES:
         return NVCC_FLAGS, ()
     if name == "sprt_jni":
-        return HOST_FLAGS + ("-I", os.path.join(_JNI, "jni_stub")), ("-ldl",)
+        return HOST_FLAGS + _JNI_INCLUDES, ("-ldl",)
+    if name == "sprt_native_host":
+        return HOST_FLAGS + ("-ffp-contract=off",), ()
+    if name == "backend_smoke":
+        return ("-O2", "-std=c++17") + _JNI_INCLUDES, ("-ldl",)
     if name != "sparkpf":
         return HOST_FLAGS, ()
     libs = host_libraries().values()
@@ -219,11 +256,13 @@ def _flags(name: str):
 
 def library_path(name: str) -> str:
     h = hashlib.sha256()
-    for path in sources(name) + HOST_HEADERS.get(name, ()):
+    for path in sources(name) + HEADERS.get(name, ()):
         with open(path, "rb") as f:
             h.update(f.read())
     before, after = _flags(name)
     h.update(" ".join(before + ("|",) + after).encode())
+    if name in EXECUTABLES:
+        return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}")
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 

@@ -1,0 +1,167 @@
+// The host plugin of the JNI library's native backend: the C interface
+// of sprt_plugin.h over host memory, each "launch" a loop over the rows
+// that calls the same per-row functions (sprt_rowops.h) as the CUDA
+// plugin's kernels. It exists so that the backend and its row logic are
+// tested on a machine with no card; the backend uses it only when its
+// caller asks for the CPU (runtime/jni_backend.init_native(device="cpu")).
+// Build with -ffp-contract=off, as the CUDA plugin with --fmad=false.
+
+#include <atomic>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+
+#include "sprt_plugin.h"
+
+using namespace sprt_rowops;
+
+namespace {
+
+constexpr int kOk = 0;
+constexpr int kInvalidValue = 1;
+constexpr int kOutOfMemory = 2;
+
+std::atomic<long long> g_launches[SPRTK_FAMILIES];
+std::atomic<long long> g_live{0};
+
+void counted(int family) { g_launches[family].fetch_add(1, std::memory_order_relaxed); }
+
+}  // namespace
+
+extern "C" {
+
+int sprtk_init(int device) { return device == 0 ? kOk : kInvalidValue; }
+
+const char* sprtk_error_string(int rc) {
+  switch (rc) {
+    case kOk:
+      return "no error";
+    case kInvalidValue:
+      return "invalid argument";
+    case kOutOfMemory:
+      return "out of memory";
+    default:
+      return "unknown error";
+  }
+}
+
+void* sprtk_stream(void) { return nullptr; }
+
+int sprtk_alloc(void** p, size_t bytes, void*) {
+  *p = nullptr;
+  if (bytes == 0) return kOk;
+  *p = std::malloc(bytes);
+  if (*p == nullptr) return kOutOfMemory;
+  g_live.fetch_add((long long)bytes);
+  return kOk;
+}
+
+int sprtk_free(void* p, size_t bytes, void*) {
+  if (p == nullptr) return kOk;
+  g_live.fetch_sub((long long)bytes);
+  std::free(p);
+  return kOk;
+}
+
+int sprtk_copy(void* dst, const void* src, size_t bytes, void*) {
+  if (bytes != 0) std::memmove(dst, src, bytes);
+  return kOk;
+}
+
+int sprtk_sync(void*) { return kOk; }
+
+long long sprtk_live_bytes(void) { return g_live.load(); }
+
+long long sprtk_launches(int family) {
+  return family >= 0 && family < SPRTK_FAMILIES ? g_launches[family].load() : -1;
+}
+
+void sprtk_reset_launches(void) {
+  for (auto& c : g_launches) c.store(0);
+}
+
+int sprtk_cast_to_integer(const uint8_t* chars, const int32_t* offsets, const uint8_t* valid,
+                          int64_t n, int bits, int ansi, int strip, void* out,
+                          uint8_t* out_valid, uint32_t* status, void*) {
+  status[0] = 0xffffffffu;
+  status[1] = 0;
+  if (n <= 0) return kOk;
+  for (int64_t i = 0; i < n; ++i) {
+    bool in_valid = valid == nullptr || valid[i] != 0;
+    int32_t len = in_valid ? offsets[i + 1] - offsets[i] : 0;
+    IntParse r = parse_integer(chars + offsets[i], len, in_valid, bits, ansi != 0, strip != 0);
+    store_le((uint8_t*)out + i * (bits / 8), bits / 8, (uint64_t)r.value);
+    out_valid[i] = r.valid ? 1 : 0;
+    if (!r.valid) {
+      ++status[1];
+      if (in_valid && status[0] == 0xffffffffu) status[0] = (uint32_t)i;
+    }
+  }
+  counted(SPRTK_CAST_INTEGER);
+  return kOk;
+}
+
+int sprtk_cast_to_float64(const uint8_t* chars, const int32_t* offsets, const uint8_t* valid,
+                          int64_t n, double* out, uint8_t* out_valid, uint32_t* status, void*) {
+  status[0] = 0xffffffffu;
+  status[1] = 0;
+  if (n <= 0) return kOk;
+  for (int64_t i = 0; i < n; ++i) {
+    bool in_valid = valid == nullptr || valid[i] != 0;
+    int32_t len = in_valid ? offsets[i + 1] - offsets[i] : 0;
+    FloatParse r = parse_float(chars + offsets[i], len, in_valid);
+    out[i] = r.value;
+    out_valid[i] = r.valid ? 1 : 0;
+    if (!r.valid) ++status[1];
+    if (r.except && status[0] == 0xffffffffu) status[0] = (uint32_t)i;
+  }
+  counted(SPRTK_CAST_FLOAT64);
+  return kOk;
+}
+
+int sprtk_decimal128(int op, const int64_t* a, const int64_t* b, const uint8_t* a_valid,
+                     const uint8_t* b_valid, int64_t n, int a_scale, int b_scale, int out_scale,
+                     int8_t* overflow, int64_t* out, uint8_t* out_valid, void*) {
+  if (n <= 0) return kOk;
+  for (int64_t i = 0; i < n; ++i) {
+    DecResult r = op == SPRTK_DEC_MUL
+                      ? multiply(a[2 * i], a[2 * i + 1], b[2 * i], b[2 * i + 1], a_scale,
+                                 b_scale, out_scale)
+                      : add_sub(a[2 * i], a[2 * i + 1], b[2 * i], b[2 * i + 1], a_scale,
+                                b_scale, out_scale, op == SPRTK_DEC_SUB);
+    bool v = (a_valid == nullptr || a_valid[i] != 0) && (b_valid == nullptr || b_valid[i] != 0);
+    out[2 * i] = r.lo;
+    out[2 * i + 1] = r.hi;
+    overflow[i] = (r.overflow && v) ? 1 : 0;
+    if (out_valid != nullptr) out_valid[i] = v ? 1 : 0;
+  }
+  counted(SPRTK_DECIMAL128);
+  return kOk;
+}
+
+int sprtk_row_layout(SprtkRowsDesc* desc, int ncols, const int32_t* sizes) {
+  return row_layout(desc, ncols, sizes) ? kOk : kInvalidValue;
+}
+
+int sprtk_to_rows(const SprtkRowsDesc* desc, int64_t row0, int64_t n, uint8_t* rows, void*) {
+  if (n <= 0) return kOk;
+  int32_t words = desc->row_size / 8;
+  for (int64_t r = 0; r < n; ++r) {
+    for (int32_t w = 0; w < words; ++w) {
+      store_le(rows + (r * words + w) * 8, 8, row_word(*desc, row0 + r, w));
+    }
+  }
+  counted(SPRTK_TO_ROWS);
+  return kOk;
+}
+
+int sprtk_from_rows(const SprtkRowsDesc* desc, const uint8_t* rows, int64_t n, void*) {
+  if (n <= 0) return kOk;
+  for (int32_t c = 0; c < desc->ncols; ++c) {
+    for (int64_t r = 0; r < n; ++r) row_unpack(*desc, rows + r * desc->row_size, r, c);
+  }
+  counted(SPRTK_FROM_ROWS);
+  return kOk;
+}
+
+}  // extern "C"

@@ -16,6 +16,13 @@ given (``"cuda"`` unless the caller asks for the CPU).
 ``bootstrap_source`` is the script ``sprt_embed_python``
 (``native/jni/embed_python.cpp``) runs to register this backend from a
 host that starts without Python.
+
+``init_native`` registers the library's other backend, the native one
+(``kernels/csrc/host/native_backend.cpp``), which ``run_op`` tries
+first: its ops run the hand-written kernels of a plugin it dlopens, with
+no Python in the call, and what it declines falls through to this
+backend. ``native_column`` copies a native handle's buffers into a port
+Column, for tests and checks.
 """
 
 from __future__ import annotations
@@ -660,3 +667,152 @@ def bootstrap_source(lib_path: Optional[str] = None, device="cuda") -> str:
         "import spark_rapids_jni_tpu_torch.runtime.jni_backend as _b\n"
         f"_b.register({lib_path!r}, device={str(device)!r})\n"
     )
+
+
+# ---- the native backend (kernels/csrc/host/native_backend.cpp)
+
+# the native column store's kinds: cudf type ids, then its own
+_NATIVE_ROWS, _NATIVE_TABLE = 100, 101
+
+
+def init_native(device="cuda") -> ctypes.CDLL:
+    """What ``TestSupport.initPjrtBackend`` does from Java: build the
+    kernel plugin for ``device`` (the CUDA plugin on a card; the host
+    plugin only for ``device="cpu"``) and call the JNI library's
+    ``sprt_pjrt_backend_init(plugin, "", "device=i:<ordinal>")``, which
+    registers the native backend as the accelerated one in the port's
+    ``sprt_jni``. Raises without a card unless the CPU is asked for.
+    Returns the library."""
+    from ..kernels import _build, native
+
+    dev = resolve_device(device)
+    plugin = native.plugin_path(dev)
+    lib = _build.load("sprt_jni")
+    lib.sprt_pjrt_backend_init.argtypes = [ctypes.c_char_p] * 3
+    options = f"device=i:{dev.index or 0}".encode()
+    rc = lib.sprt_pjrt_backend_init(plugin.encode(), b"", options)
+    if rc != 0:
+        raise RuntimeError(f"sprt_pjrt_backend_init({plugin!r}) returned {rc}")
+    _set_native_signatures(lib)
+    return lib
+
+
+def uninit_native() -> None:
+    """Register NULL as the accelerated backend of the port's
+    ``sprt_jni``: every op goes to the default backend again. Native
+    handles stay valid and releasable once the backend is registered
+    again."""
+    from ..kernels import _build
+
+    lib = _build.load("sprt_jni")
+    lib.sprt_register_accel_backend.argtypes = [ctypes.c_void_p]
+    lib.sprt_register_accel_backend(None)
+
+
+def _set_native_signatures(lib) -> None:
+    lib.sprt_native_column.argtypes = [ctypes.c_long, ctypes.POINTER(ctypes.c_long)]
+    lib.sprt_native_copy_out.argtypes = [ctypes.c_long, ctypes.c_int, ctypes.c_void_p]
+    lib.sprt_native_live_bytes.restype = ctypes.c_long
+    lib.sprt_native_launches.restype = ctypes.c_long
+    lib.sprt_native_launches.argtypes = [ctypes.c_int]
+    lib.sprt_native_reset_launches.argtypes = []
+
+
+def native_counts(lib) -> dict:
+    """The active plugin's launches by kernel family and its live bytes."""
+    from ..kernels import native
+
+    _set_native_signatures(lib)
+    out = {name: int(lib.sprt_native_launches(i)) for name, i in native.FAMILIES.items()}
+    out["live_bytes"] = int(lib.sprt_native_live_bytes())
+    return out
+
+
+# sprtcheck: host-side — copies a native handle's buffers out for a check, after the op
+def native_column(lib, handle: int, device="cuda") -> Column:
+    """A copy of the native handle's column as a port Column on
+    ``device``: its values, validity (None when the backend holds no
+    mask) and offsets; packed rows come back as a BINARY column with
+    their row offsets."""
+    from ..columnar import dtypes as dt
+
+    _set_native_signatures(lib)
+    info = (ctypes.c_long * 8)()
+    if lib.sprt_native_column(handle, info) != 0:
+        raise KeyError(f"the native backend holds no handle {handle}")
+    kind, scale, rows, row_size, nbytes, has_valid, has_offsets, _children = info
+    if kind == _NATIVE_TABLE:
+        raise TypeError("a native table handle: read its columns (test.table_column)")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()  # the blocks are free on every stream
+
+    def part(i, count, dtype):
+        t = torch.empty(count, dtype=dtype, device=dev)
+        rc = lib.sprt_native_copy_out(handle, i, t.data_ptr())
+        if rc != 0:
+            raise RuntimeError(f"sprt_native_copy_out({handle}, {i}) returned {rc}")
+        return t
+
+    validity = part(1, rows, torch.uint8).view(torch.bool) if has_valid else None
+    if kind == 23 and has_offsets:
+        return Column(dt.STRING, part(0, nbytes, torch.uint8), validity,
+                      part(2, rows + 1, torch.int32))
+    if kind == _NATIVE_ROWS:
+        offsets = torch.arange(rows + 1, dtype=torch.int32, device=dev) * row_size
+        return Column(dt.BINARY, part(0, nbytes, torch.uint8), None, offsets)
+    if kind == 27:
+        return Column(dt.DECIMAL128(38, scale), part(0, 2 * rows, torch.int64).view(rows, 2),
+                      validity)
+    dtype = {
+        1: dt.INT8, 2: dt.INT16, 3: dt.INT32, 4: dt.INT64, 8: dt.BOOL8, 9: dt.FLOAT32,
+        10: dt.FLOAT64, 25: dt.DECIMAL32(9, scale), 26: dt.DECIMAL64(18, scale),
+    }[kind]
+    return Column(dtype, part(0, rows, dtype.torch_dtype), validity)
+
+
+def pack_string_rows(data: np.ndarray, offsets: np.ndarray, validity=None) -> np.ndarray:
+    """``test.make_string_column``'s arguments for a whole column at once
+    (the per-string layout of ``pack_string``, a null as [-1]): int64
+    [n, then each row's length and words]."""
+    data = np.asarray(data, np.uint8)
+    offsets = np.asarray(offsets, np.int64)
+    n = len(offsets) - 1
+    lens = np.diff(offsets)
+    if validity is not None:
+        lens = np.where(validity, lens, -1)
+    words = np.where(lens > 0, (lens + 7) // 8, 0)
+    slot = 1 + np.concatenate([[0], np.cumsum(1 + words)[:-1]]).astype(np.int64)
+    out = np.zeros(1 + int((1 + words).sum()), np.int64)
+    out[0] = n
+    out[slot] = lens
+    live = lens > 0
+    row = np.repeat(np.arange(n)[live], lens[live])
+    pos = np.arange(len(row)) - np.repeat(np.cumsum(lens[live]) - lens[live], lens[live])
+    raw = out.view(np.uint8)
+    raw[8 * (slot[row] + 1) + pos] = data[offsets[row] + pos]
+    return out
+
+
+def call_backend(backend, op: str, args) -> tuple:
+    """One call through a C ``SprtBackend`` pointer (run_op's path) with
+    int64 ``args``: a list, or an int64 array passed without a copy.
+    Returns (rc, handles or values, error, error_row, error_str); the C
+    strings are freed here."""
+    if isinstance(args, np.ndarray):
+        arr = np.ascontiguousarray(args, dtype=np.int64)
+        ptr, n = arr.ctypes.data_as(ctypes.POINTER(ctypes.c_long)), len(arr)
+    else:
+        ptr, n = (ctypes.c_long * len(args))(*[int(a) for a in args]), len(args)
+    res = SprtCallResult()
+    res.error_row = -1
+    rc = backend.contents.call(op.encode(), ptr, n, ctypes.byref(res))
+    texts = []
+    for field in ("error", "error_str"):
+        slot = ctypes.cast(ctypes.addressof(res) + getattr(SprtCallResult, field).offset,
+                           ctypes.POINTER(ctypes.c_void_p))
+        texts.append(None if not slot[0] else ctypes.string_at(slot[0]).decode("utf-8", "replace"))
+        if slot[0]:
+            _libc.free(ctypes.c_void_p(slot[0]))
+            slot[0] = None
+    return rc, [res.handles[i] for i in range(res.n_handles)], texts[0], res.error_row, texts[1]

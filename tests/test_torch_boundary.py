@@ -236,6 +236,11 @@ SERVING_SLICE_MODULES = [
 BOUNDARY_SLICE_MODULES = [
     ("spark_rapids_jni_tpu_torch.runtime.jni_backend", "register"),
     ("spark_rapids_jni_tpu_torch.runtime.jni_backend", "bootstrap_source"),
+    ("spark_rapids_jni_tpu_torch.runtime.jni_backend", "init_native"),
+    ("spark_rapids_jni_tpu_torch.runtime.jni_backend", "uninit_native"),
+    ("spark_rapids_jni_tpu_torch.runtime.jni_backend", "native_column"),
+    ("spark_rapids_jni_tpu_torch.kernels.native", "plugin_path"),
+    ("spark_rapids_jni_tpu_torch.kernels.native", "cast_integer"),
     ("spark_rapids_jni_tpu_torch.runtime.faultinj_pjrt", "install"),
     ("spark_rapids_jni_tpu_torch.kernels._build", "forget_loaded"),
     ("spark_rapids_jni_tpu_torch.analysis", "analyze"),

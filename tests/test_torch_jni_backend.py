@@ -138,9 +138,11 @@ def test_library_is_built_from_native_without_pjrt(lib):
     names = [os.path.basename(s) for s in srcs]
     assert "pjrt_backend.cpp" not in names and "pjrt_executor.cpp" not in names
     assert sum(n.endswith("Jni.cpp") for n in names) == 10
+    assert "native_backend.cpp" in names
     assert os.path.exists(_build.library_path("sprt_jni"))
-    # the port's stand-in for the PJRT bootstrap always fails, so no
-    # accelerated backend is ever registered and run_op reaches Python
+    # the PJRT bootstrap's symbol is the port's native backend
+    # (native_backend.cpp, which replaced pjrt_absent.cpp): given a NULL
+    # kernel plugin it fails and registers nothing, so run_op reaches Python
     assert lib.sprt_pjrt_backend_init(None, None, None) != 0
     assert not lib.sprt_get_accel_backend()
 
