@@ -18,11 +18,15 @@ Phases, each fatal on failure:
   3. kernel parity: the kernel against its plain PyTorch version on the
      card, exact, over a matrix of types, nulls, seeds and row counts;
      times both with CUDA events
-  4. main path: counts set to 0, the path driven through the public
-     entry points, counts read; partition ids against the plain version
-     and an independent numpy Murmur3, the round trip exact
+  4. main path: counts set to 0 (murmur3 and the five native kernel
+     families), the path driven through the public entry points, counts
+     read: convertToRows / convertFromRows launch the native to_rows and
+     from_rows kernels; partition ids against the plain version and an
+     independent numpy Murmur3, the rows and columns bit-exact against
+     the row kernels' plain versions, the round trip exact
   5. two more shapes: the reference's 212-column fixed-width nvbench
-     table and bench.py's strings table, both at 1 Mi rows, exact
+     table (the row kernels, one launch per window, held to their plain
+     versions) and bench.py's strings table, both at 1 Mi rows, exact
   6. card against CPU: a mixed 64 Ki-row batch (ties, NaN, -0.0, nulls,
      strings, DECIMAL64/128 with overflow rows) through sort, filter,
      group-by and the decimal operators on the card and on the CPU;
@@ -31,7 +35,9 @@ Phases, each fatal on failure:
      lineitem rows in 4 Mi-row batches on the card through filter ->
      DECIMAL128 products -> group-by -> sort, every batch and the merge of
      all batches exactly equal to a host oracle; per-stage times, rows/s,
-     a profile and the peak device memory
+     a profile and the peak device memory; the products launch the
+     native decimal128 kernel, held to the i128 and noshift plain
+     regimes on one batch
   8. joins, card against CPU: all six join types through ``join`` and
      ``join_padded`` over 64 Ki-row sides (INT64 keys with nulls and
      duplicates, STRING + INT32 keys of different pad widths, FLOAT64 keys
@@ -62,7 +68,9 @@ Phases, each fatal on failure:
      and run through toInteger -> toDecimal -> get_json_object -> filter
      -> group-by; every row group and the folded per-store totals exactly
      equal to the oracle; end-to-end and device-chain rows/s, per-stage
-     ms, ops per row group, a profile and the peak device memory
+     ms, ops per row group, a profile and the peak device memory; the
+     toInteger cast launches the native cast_integer kernel, held to its
+     plain version on one row group
   13. float casts and from_json, card against CPU: a mixed 64 Ki-row batch
      of float strings (every quirk of the reference's parser: nan/inf
      forms, f/d suffixes, the 4-digit exponent cap, 19-25 digit
@@ -75,8 +83,10 @@ Phases, each fatal on failure:
   14. the reference's string->float axis (cast_string_to_float nvbench,
      FLOAT32 at 1 Mi and 100 Mi rows): benchmarks/suites.py-shaped
      strings, the 100 Mi-row column resident on the card and cast in
-     16 Mi-row chunks, every row exact against a host oracle; rows/s,
-     per-chunk ms, ops, a profile and the peak device memory
+     16 Mi-row chunks through the native cast_float64 kernel, every row
+     exact against a host oracle and one chunk's FLOAT64 values
+     bit-exact against the kernel's plain version; rows/s, per-chunk ms,
+     ops, a profile and the peak device memory
   15. from_json over SF10 store_sales: extractRawMapFromJsonString over
      ss_attrs_json of phase 12's file (28,800,000 rows, the reader's
      footer pruned to that column), every row group exact against the
@@ -205,13 +215,17 @@ Phases, each fatal on failure:
      14's toFloat axis, phase 13's quirks and ANSI errors), DECIMAL128
      add, subtract and multiply over 4 Mi q1 rows, JCUDF rows of two
      schemas at 4 Mi rows both ways; every result bit-exact against the
-     port's torch op, the live bytes back to 0, the backend unregistered;
-     each kernel family timed against its plain version and byte bound
+     kernel's plain version, the live bytes back to 0, the backend
+     unregistered; each kernel family timed against its plain version
+     and byte bound, the row kernels at three schemas (56, 16 and the
+     80-byte rung-1 rows) beside a device-to-device copy of their bytes
   34. one JSON line of kernel numbers (murmur3 with its launches on every
      path: rung 1, the exchange paths 26-28, serving, the injector's and
-     the DOUBLE keys' launch it, the others 0; the native backend's five
-     kernels with their launches on phase 33's path), the card line,
-     then the verdict
+     the DOUBLE keys' launch it, the others 0; the five native kernels
+     with their launches on the main path that runs each (rung 1, q1,
+     store_sales, the FLOAT64 axis) and on every path; q1 through the
+     Pipeline must launch decimal128 too), the card line, then the
+     verdict
 
 Exits non-zero, printing no verdict, without a card or without the port
 beside it. Data is made from fixed seeds.
@@ -389,6 +403,60 @@ def launch_medians(fn, loops=3, launches=25):
         torch.cuda.synchronize()
         medians.append(float(np.median([a.elapsed_time(b) for a, b in evs])))
     return medians
+
+
+class NativeCount:
+    """One native kernel family's launches (``kernels/native.py``,
+    counted in the CUDA plugin where its wrapper launches the kernel),
+    read and set to 0 as a phase reads and resets ``murmur3.launches``.
+    Setting it keeps the plugin's count as the new zero."""
+
+    def __init__(self, family):
+        self.family, self.base = family, 0
+
+    @property
+    def launches(self):
+        from spark_rapids_jni_tpu_torch.kernels import native
+
+        return native.launch_counts()[self.family] - self.base
+
+    @launches.setter
+    def launches(self, value):
+        from spark_rapids_jni_tpu_torch.kernels import native
+
+        self.base = native.launch_counts()[self.family] - value
+
+
+NATIVE_FAMILIES = ("cast_integer", "cast_float64", "decimal128", "to_rows", "from_rows")
+
+
+def native_counters():
+    """A phase's counters entry per native family: ``native_<family>``."""
+    return {f"native_{f}": NativeCount(f) for f in NATIVE_FAMILIES}
+
+
+def same_bytes(label, got, want):
+    """Two tensors (or None) equal byte for byte, else AssertionError."""
+    if (got is None) != (want is None) or (got is not None and not torch.equal(
+            got.contiguous().reshape(-1).view(torch.uint8),
+            want.to(got.dtype).contiguous().reshape(-1).view(torch.uint8))):
+        raise AssertionError(f"{label}: the kernel's result differs from its plain version")
+
+
+def rows_against_plain(label, table, row_cols, back):
+    """convertToRows' rows and convertFromRows' columns (the native row
+    kernels) against native.to_rows_plain / from_rows_plain of the same
+    inputs on the card, bit for bit."""
+    from spark_rapids_jni_tpu_torch.kernels import native
+
+    want = native.to_rows_plain(table.columns).reshape(-1)
+    got = torch.cat([r.data for r in row_cols])
+    same_bytes(f"{label} rows", got, want)
+    rows2d = want.reshape(table.num_rows, -1)
+    for i, ((d, v), c) in enumerate(zip(native.from_rows_plain(
+            rows2d, [c.dtype for c in table.columns]), back.columns)):
+        same_bytes(f"{label} column {i}", c.data, d)
+        same_bytes(f"{label} column {i} validity", c.validity, v)
 
 
 def host_ms(fn, reps=3):
@@ -805,6 +873,37 @@ def q1_rows(out):
     return [list(r) for r in zip(*out.to_pylists())]
 
 
+def q1_decimal_against_plain(t):
+    """q1's two multiply128 calls over one batch (the native decimal128
+    kernel on the card) against the plain regimes they take on the CPU,
+    i128 and then noshift, on the same inputs on the card, bit for bit;
+    and the noshift regime's overflow edges."""
+    from spark_rapids_jni_tpu_torch.api import DecimalUtils
+    from spark_rapids_jni_tpu_torch.ops import decimal
+
+    price, disc, tax = (t.columns[k].data for k in (3, 4, 5))
+    a, b, c = widen(price, 12), widen(100 - disc, 13), widen(100 + tax, 13)
+    m1 = DecimalUtils.multiply128(a, b, 4)
+    o1, l1 = decimal._multiply_i128_kernel(a.data, b.data)
+    m2 = DecimalUtils.multiply128(m1.columns[1], c, 6)
+    o2, l2 = decimal._multiply_noshift_kernel(l1, c.data)
+    # the noshift regime at its edges: |product| just under, at and over
+    # 10^38 (at 10^38 exactly multiply128 zeroes the kernel's product)
+    from spark_rapids_jni_tpu_torch import DECIMAL128, Column
+
+    edge = [(10**19, 10**19), (-(10**19), 10**19), (10**19 + 1, 10**19),
+            (10**19 - 1, 10**19), (-(10**19) + 1, -(10**19) - 1), (10**20 - 1, 10**18)]
+    ea, eb = ([[v & (2**64 - 1), v >> 64 & (2**64 - 1)] for v in side] for side in zip(*edge))
+    ea, eb = (Column(DECIMAL128(20, 2), torch.tensor(np.array(x, np.uint64).view(np.int64),
+                                                     device="cuda")) for x in (ea, eb))
+    m3 = DecimalUtils.multiply128(ea, eb, 4)
+    o3, l3 = decimal._multiply_noshift_kernel(ea.data, eb.data)
+    for label, m, o, lm in (("i128", m1, o1, l1), ("noshift", m2, o2, l2),
+                            ("noshift edges", m3, o3, l3)):
+        same_bytes(f"q1 multiply128 ({label}) overflow", m.columns[0].data, o.to(torch.int8))
+        same_bytes(f"q1 multiply128 ({label}) product", m.columns[1].data, lm)
+
+
 def q1_sf10(counters, card):
     """The q1 path at SF10: batches drawn on the host, copied to the
     card, then timed stage by stage and held against the host oracle
@@ -844,6 +943,9 @@ def q1_sf10(counters, card):
         outs.append(q1_run(t, tick))
         total_s += last[0] - start
     launches = {name: c.launches for name, c in counters.items()}
+    if launches.get("native_decimal128", 0) < 1:
+        raise AssertionError(f"q1 did not launch decimal128: {launches}")
+    q1_decimal_against_plain(tables[0])
 
     merged_got, merged_want = {}, {}
     for i, ((out, overflow), arrays) in enumerate(zip(outs, host)):
@@ -1800,6 +1902,21 @@ def scan_forms(elems=SS_RG * SS_WIDTHS[2], widths=(48, 256, 512, 1024)):
     print(f"lane scans, CUDA-event ms (mean of 10): {json.dumps(out)}", flush=True)
 
 
+def ss_quantity_against_plain(t):
+    """The chain's quantity cast of one row group (the native
+    cast_integer kernel on the card) against cast_integer_plain on the
+    same column on the card, bit for bit."""
+    from spark_rapids_jni_tpu_torch import INT32
+    from spark_rapids_jni_tpu_torch.kernels import native
+    from spark_rapids_jni_tpu_torch.ops.cast_string import string_to_integer
+
+    col = t.columns[1]
+    got = string_to_integer(col, INT32, strip=True, width=SS_WIDTHS[0])
+    value, ok, _ = native.cast_integer_plain(col.data, col.offsets, col.validity, 32, False, True)
+    same_bytes("store_sales quantity cast", got.data, value)
+    same_bytes("store_sales quantity cast validity", got.validity_or_true(), ok)
+
+
 def store_sales_sf10(counters, card, path, rows=SS_ROWS, rg_rows=SS_RG):
     """Phase 12: store_sales at SF10 written to a Parquet file at
     ``path`` (phase 15 reads it again), read back through the port's
@@ -1865,6 +1982,9 @@ def store_sales_sf10(counters, card, path, rows=SS_ROWS, rg_rows=SS_RG):
     chain_s = time.perf_counter() - t0
     if chain_total != want_total:
         raise AssertionError("store_sales device-chain totals differ from the oracle")
+    if launches.get("native_cast_integer", 0) < 1:
+        raise AssertionError(f"the store_sales path did not launch cast_integer: {launches}")
+    ss_quantity_against_plain(resident[0])
 
     med = {s: float(np.median(v)) for s, v in stage_ms.items()}
     print(f"store_sales sf10: {len(resident)} row groups and the folded totals exact "
@@ -2123,12 +2243,14 @@ def float_axis_strings(n, seed):
 def float_axis(counters, card):
     """Phase 14: FLOAT32 casts of the reference's string->float axis at
     1 Mi and 100 Mi rows (the 100 Mi column resident on the card, cast
-    in 16 Mi-row chunks), every row exact against the oracle; rows/s at
-    both sizes, per-chunk ms, ops per chunk, a profile and the peak
-    device memory."""
+    in 16 Mi-row chunks, each through the native cast_float64 kernel),
+    every row exact against the oracle and one chunk's FLOAT64 values
+    bit-exact against the kernel's plain version; rows/s at both sizes,
+    per-chunk ms, ops per chunk, a profile and the peak device memory."""
     from spark_rapids_jni_tpu_torch import FLOAT32
     from spark_rapids_jni_tpu_torch.api import CastStrings
     from spark_rapids_jni_tpu_torch.columnar.interop import column_from_numpy
+    from spark_rapids_jni_tpu_torch.kernels import native
 
     def check(col, oracle, label):
         res = CastStrings.toFloat(col, False, FLOAT32)
@@ -2165,7 +2287,17 @@ def float_axis(counters, card):
         chunk_ms.append((time.perf_counter() - t) * 1e3)
     total_s = time.perf_counter() - start
     launches = {name: c.launches for name, c in counters.items()}
+    if launches.get("native_cast_float64", 0) < len(chunks):
+        raise AssertionError(f"the float axis did not launch cast_float64 per chunk: {launches}")
     peak = torch.cuda.max_memory_allocated()
+    # the kernel's FLOAT64 values, before the narrowing, at the chunk
+    # shape the sweep times, bit for bit against its plain version
+    got64, ok64, _ = native.cast_float64(chunks[0].data, chunks[0].offsets, chunks[0].validity)
+    want64, wok64, _ = native.cast_float64_plain(chunks[0].data, chunks[0].offsets,
+                                                 chunks[0].validity)
+    same_bytes(f"float axis cast_float64 ({len(chunks[0])} rows)", got64, want64)
+    same_bytes(f"float axis cast_float64 validity ({len(chunks[0])} rows)", ok64, wok64)
+    del got64, ok64, want64, wok64
     for i, (c, o) in enumerate(zip(chunks, oracles)):
         check(c, o, f"100 Mi chunk {i}")
     print(f"float axis: 1 Mi and {F_ROWS[1]} rows exact against the oracle (strings made and "
@@ -2175,6 +2307,8 @@ def float_axis(counters, card):
           f"median of 5); 100 Mi {F_ROWS[1] / total_s:.4g} ({total_s * 1e3:.1f} ms in "
           f"{len(chunks)} chunks of <= {F_CHUNK} rows)")
     print(f"float axis per-chunk ms: {json.dumps([round(m, 3) for m in chunk_ms])}")
+    print(f"float axis: the native cast_float64 kernel's FLOAT64 values of a {len(chunks[0])}-row "
+          f"chunk bit-exact against cast_float64_plain")
     print(f"float axis torch ops dispatched per 16 Mi chunk: "
           f"{json.dumps(op_counts(lambda tick: (CastStrings.toFloat(chunks[0], False, FLOAT32), tick('toFloat'))))}")
     profile_stage(f"toFloat chunk ({len(chunks[0])} rows)",
@@ -3290,7 +3424,14 @@ def q1_pipeline_phase(counters, card):
             raise AssertionError(f"q1 eager chain batch {i} differs")
     n_shapes = len(set(sizes))
     pipe = q1_pipeline("q1_sf10")
+    dec = NativeCount("decimal128")
+    dec.launches = 0
     stats["run"], _ = sweep("run", each=pipe.run)
+    # the plan builds' warm-up and capture launch it; a replay does not
+    # pass the wrapper
+    pipe_dec = dec.launches
+    if pipe_dec < 1:
+        raise AssertionError("q1 through the Pipeline did not launch decimal128")
     stats["stream"], _ = sweep("stream(window=2)", lambda: pipe.stream(tables, window=2))
     if stats["run"]["misses"] != n_shapes or stats["stream"]["misses"]:
         raise AssertionError(f"q1 pipeline: plan-cache misses {stats['run']['misses']} + "
@@ -3303,6 +3444,7 @@ def q1_pipeline_phase(counters, card):
         raise AssertionError("q1 pipeline: the concurrent runs built a plan")
     stats["eager chain again"], _ = sweep("eager chain (again)", each=q1_chain_eager)
     launches = {name: c.launches for name, c in counters.items()}
+    launches["native_decimal128_pipeline_run"] = pipe_dec
     t0 = tables[0]
     builds = {r["pipeline"]: r["build_wall_ms"] for r in pl.plan_cache_table()
               if r["pipeline"] == "q1_sf10"}
@@ -5530,11 +5672,9 @@ def native_backend_phase(card):
     the kernel entries of the JSON line."""
     import ctypes
 
-    from spark_rapids_jni_tpu_torch import FLOAT64, INT8, INT32, INT64, Column, Table
-    from spark_rapids_jni_tpu_torch.columnar.interop import column_from_numpy
+    from spark_rapids_jni_tpu_torch import INT8, INT32, INT64, Column, Table
+    from spark_rapids_jni_tpu_torch.columnar.interop import column_from_numpy, table_from_numpy
     from spark_rapids_jni_tpu_torch.kernels import _build, native
-    from spark_rapids_jni_tpu_torch.ops import cast_string, row_conversion
-    from spark_rapids_jni_tpu_torch.runtime import errors
     from spark_rapids_jni_tpu_torch.runtime import jni_backend as jb
 
     t0 = time.perf_counter()
@@ -5665,32 +5805,43 @@ def native_backend_phase(card):
             raise AssertionError(f"native {label} differs from the port's torch op")
 
     ints, floats, quirks = port["ints"], port["floats"], port["quirks"]
-    casts = {  # each native cast's label -> the port's op on the same column
-        "int32": lambda: cast_string.string_to_integer(ints, INT32, strip=True),
-        "int64": lambda: cast_string.string_to_integer(ints, INT64, strip=True),
-        "int32_nostrip": lambda: cast_string.string_to_integer(ints, INT32, strip=False),
-        "float64": lambda: cast_string.string_to_float(floats, FLOAT64),
-        "quirks": lambda: cast_string.string_to_float(quirks, FLOAT64),
+
+    def plain_int(col, bits, strip):
+        return lambda: native.cast_integer_plain(col.data, col.offsets, col.validity, bits,
+                                                 False, strip)
+
+    def plain_f64(col):
+        return lambda: native.cast_float64_plain(col.data, col.offsets, col.validity)
+
+    casts = {  # each native cast's label -> its plain version on the same column
+        "int32": plain_int(ints, 32, True),
+        "int64": plain_int(ints, 64, True),
+        "int32_nostrip": plain_int(ints, 32, False),
+        "float64": plain_f64(floats),
+        "quirks": plain_f64(quirks),
     }
     for label, cast in casts.items():
-        want, g = cast(), got(out[label])
-        if (g.validity is None) != (want.validity is None):
-            raise AssertionError(f"native {label}: a mask where the port has none, or back")
-        same(label, g, want.data, want.validity)
-    ansi_casts = {
-        "int64": lambda: cast_string.string_to_integer(ints, INT64, ansi_mode=True),
-        "float64": lambda: cast_string.string_to_float(quirks, FLOAT64, ansi_mode=True),
+        value, ok, _status = cast()
+        g = got(out[label])
+        if (g.validity is None) != bool(ok.all()):
+            raise AssertionError(f"native {label}: a mask where the plain version has none, "
+                                 "or back")
+        same(label, g, value, ok)
+    ansi_casts = {  # the first bad row of the plain version's status
+        "int64": (ints, lambda: native.cast_integer_plain(ints.data, ints.offsets,
+                                                          ints.validity, 64, True, True)),
+        "float64": (quirks, lambda: native.cast_float64_plain(quirks.data, quirks.offsets,
+                                                              quirks.validity)),
     }
-    for name, cast in ansi_casts.items():
-        try:
-            cast()
-        except errors.CastException as e:
-            want_err = (e.row_with_error, e.string_with_error)
-        else:
-            raise AssertionError(f"the port's ANSI {name} cast raised nothing")
+    for name, (col, cast) in ansi_casts.items():
+        row = int(cast()[2][0])
+        if row == native.NO_ROW:
+            raise AssertionError(f"the plain ANSI {name} cast found no bad row")
+        o0, o1 = int(col.offsets[row]), int(col.offsets[row + 1])
+        want_err = (row, bytes(col.data[o0:o1].cpu().numpy()).decode("utf-8", "replace"))
         rc, _, _, row, s = ansi[name]
         if rc != 1 or (row, s) != want_err:
-            raise AssertionError(f"native ANSI {name}: rc {rc}, row {row} {s!r}; port {want_err}")
+            raise AssertionError(f"native ANSI {name}: rc {rc}, row {row} {s!r}; plain {want_err}")
     checked = len(casts) + len(ansi_casts)
     a, b = limbs(dev["price"]), limbs(dev["one_minus"])
     for op in NATIVE_DEC_OPS:
@@ -5704,16 +5855,14 @@ def native_backend_phase(card):
     wide_t = Table([got(x) for x in wide_cols])
     for label, tbl, handles_ in (("narrow", narrow_t, out["rows_narrow"]),
                                  ("wide", wide_t, out["rows_wide"])):
-        want = row_conversion.convert_to_rows(tbl)
+        want = native.to_rows_plain(tbl.columns)
         g = [got(x) for x in handles_]
-        if len(g) != len(want) or not all(torch.equal(x.data, w.data) and
-                                          torch.equal(x.offsets, w.offsets)
-                                          for x, w in zip(g, want)):
-            raise AssertionError(f"native rows ({label}) differ from convertToRows")
-        back = row_conversion.convert_from_rows(want, [c.dtype for c in tbl.columns])
-        for i, (x, w) in enumerate(zip(out[f"back_{label}"], back.columns)):
-            same(f"from rows ({label}) column {i}", got(x), w.data, w.validity)
-        checked += 1 + len(back.columns)
+        if len(g) != 1 or not torch.equal(g[0].data, want.reshape(-1)):
+            raise AssertionError(f"native rows ({label}) differ from to_rows_plain")
+        back = native.from_rows_plain(want, [c.dtype for c in tbl.columns])
+        for i, (x, (wd, wv)) in enumerate(zip(out[f"back_{label}"], back)):
+            same(f"from rows ({label}) column {i}", got(x), wd, wv)
+        checked += 1 + len(back)
     row_bytes = {k: int(got(out[k][0]).data.numel()) for k in ("rows_narrow", "rows_wide")}
 
     for x in handles:
@@ -5724,15 +5873,23 @@ def native_backend_phase(card):
     jb.uninit_native()
     if lib.sprt_get_accel_backend():
         raise AssertionError("the native backend is still registered")
-    print(f"native backend (b): {checked} results bit-exact against the port's torch ops "
-          f"({N_WIDE} cast rows, {N_MAIN} decimal and row rows; rows of {row_bytes} bytes); "
-          f"main path {main_s:.2f} s, kernel launches {json.dumps(launches)}; ANSI errors "
+    print(f"native backend (b): {checked} results bit-exact against the kernels' plain "
+          f"versions ({N_WIDE} cast rows, {N_MAIN} decimal and row rows; rows of {row_bytes} "
+          f"bytes); main path {main_s:.2f} s, kernel launches {json.dumps(launches)}; ANSI errors "
           f"{json.dumps({k: v[3] for k, v in ansi.items()})}; {len(handles)} handles released, "
           f"live bytes 0; unregistered; card: {card}", flush=True)
 
     # each family's kernel through its wrapper, on torch's stream
     ic, fc = ints, floats
     src = "spark_rapids_jni_tpu_torch/kernels/csrc/native/kernels.cu"
+
+    def col_bytes(tbl):
+        return sum(c.data.numel() * c.data.element_size() + (0 if c.validity is None else
+                                                              c.data.shape[0])
+                   for c in tbl.columns)
+
+    row_tables = {"wide": wide_t, "narrow": narrow_t,
+                  "rung1": table_from_numpy(lineitem_spec(N_MAIN), device="cuda")}
     shapes = {
         "cast_integer": (
             lambda: native.cast_integer(ic.data, ic.offsets, ic.validity, 64, False, True),
@@ -5746,39 +5903,56 @@ def native_backend_phase(card):
             lambda: native.decimal128("mul", a, b, dev["dec_valid"], None, 2, 2, 4),
             lambda: native.decimal128_plain("mul", a, b, dev["dec_valid"], None, 2, 2, 4),
             N_MAIN * (32 + 1 + 16 + 1 + 1), N_MAIN * NATIVE_DEC_ROW_OPS["mul"]),
-        "to_rows": (
-            lambda: native.to_rows(wide_t.columns),
-            lambda: native.to_rows_plain(wide_t.columns),
-            sum(c.data.numel() * c.data.element_size() + (0 if c.validity is None else N_MAIN)
-                for c in wide_t.columns) + row_bytes["rows_wide"], 0),
     }
-    wide_rows = native.to_rows(wide_t.columns)
-    wide_types = [c.dtype for c in wide_t.columns]
-    shapes["from_rows"] = (
-        lambda: native.from_rows(wide_rows, wide_types),
-        lambda: native.from_rows_plain(wide_rows, wide_types),
-        row_bytes["rows_wide"] + sum(c.data.numel() * c.data.element_size() + N_MAIN
-                                     for c in wide_t.columns), 0)
-    entries = []
+    for label, tbl in row_tables.items():
+        types = [c.dtype for c in tbl.columns]
+        rows2d = native.to_rows(tbl.columns)
+        row_bytes = rows2d.numel()
+        # to rows: each column and validity byte read, each row byte
+        # written; from rows: each row byte read, each column byte and a
+        # validity byte per column written (every output column has one)
+        shapes[f"to_rows {label}"] = (
+            lambda c=tbl.columns: native.to_rows(c),
+            lambda c=tbl.columns: native.to_rows_plain(c),
+            col_bytes(tbl) + row_bytes, 0)
+        shapes[f"from_rows {label}"] = (
+            lambda r=rows2d, t=types: native.from_rows(r, t),
+            lambda r=rows2d, t=types: native.from_rows_plain(r, t),
+            row_bytes + sum(c.data.numel() * c.data.element_size() + c.data.shape[0]
+                            for c in tbl.columns), 0)
+    timed = {}
     for name, (kernel, plain, nbytes, ops) in shapes.items():
         pairs = list(zip(flat_tensors(kernel()), flat_tensors(plain())))
         torch.cuda.synchronize()
         for u, w in pairs:
-            if (u is None) != (w is None) or (u is not None and not torch.equal(
-                    u.contiguous().reshape(-1).view(torch.uint8),
-                    w.to(u.dtype).contiguous().reshape(-1).view(torch.uint8))):
-                raise AssertionError(f"native kernel {name} differs from its plain version")
+            same_bytes(f"native kernel {name}", u, w)
         medians = launch_medians(kernel)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
-        entries.append({
-            "name": f"native_{name}", "route": "cuda", "source": src,
-            "replaces": native.REPLACES[name], "launches": launches[name],
-            "max_abs_err": 0, "ms": float(np.median(medians)), "medians_ms": medians,
-            "plain_ms": time_ms(plain, 5), "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
-            "bytes": nbytes,
-        })
-        print(f"native kernel [{name}]: {json.dumps(entries[-1])}; card: {card}", flush=True)
+        rec = {"ms": float(np.median(medians)), "medians_ms": medians,
+               "plain_ms": time_ms(plain, 5), "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes}
+        if name.split()[0] in ("to_rows", "from_rows"):
+            # the card's reachable ceiling: one device-to-device copy whose
+            # reads and writes add up to the same bytes
+            src_buf = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+            dst_buf = torch.empty_like(src_buf)
+            rec["copy_ms"] = float(np.median(launch_medians(lambda: dst_buf.copy_(src_buf))))
+            rec["bound_share"] = round(rec["bound_ms"] / rec["ms"], 4)
+            rec["copy_share"] = round(rec["copy_ms"] / rec["ms"], 4)
+            del src_buf, dst_buf
+        timed[name] = rec
+        print(f"native kernel [{name}]: {json.dumps(rec)}; card: {card}", flush=True)
+    entries = []
+    for family in NATIVE_FAMILIES:
+        key = {"to_rows": "to_rows rung1", "from_rows": "from_rows rung1"}.get(family, family)
+        entry = {"name": f"native_{family}", "route": "cuda", "source": src,
+                 "replaces": native.REPLACES[family], "launches": None, "max_abs_err": 0}
+        entry.update(timed[key])
+        entry["library_ms"] = None
+        if family in ("to_rows", "from_rows"):
+            entry["schemas"] = {k.split()[1]: v for k, v in timed.items()
+                                if k.split()[0] == family}
+        entries.append(entry)
     return entries
 
 
@@ -5790,7 +5964,8 @@ def main() -> int:
 
         now = time.perf_counter()
         print(f"phase {label}: {now - phase_t[0]:.1f} s wall; plan cache "
-              f"{json.dumps(graph_cache_line(pl))}", flush=True)
+              f"{json.dumps(graph_cache_line(pl))}; reserved {torch.cuda.memory_reserved()}",
+              flush=True)
         phase_t[0] = now
 
     # ---- 1. device
@@ -5873,15 +6048,22 @@ def main() -> int:
 
     # ---- 4. main path, counted
     schema = [c.dtype for c in full.columns]
+    natives = native_counters()
     torch.cuda.synchronize()
     murmur3.launches = 0
+    for c in natives.values():
+        c.launches = 0
     pids = spark_hash.partition_ids(keys, NUM_PARTITIONS)
     rows = RowConversion.convertToRows(full)
     back = RowConversion.convertFromRows(rows, schema)
     torch.cuda.synchronize()
     main_launches = murmur3.launches
+    rung1_native = {k: c.launches for k, c in natives.items()}
     if main_launches < 1:
         raise AssertionError("the main path did not launch the murmur3 kernel")
+    if rung1_native["native_to_rows"] < 1 or rung1_native["native_from_rows"] < 1:
+        raise AssertionError(f"rung 1 left a row kernel unlaunched: {rung1_native}")
+    rows_against_plain("rung 1", full, rows, back)
 
     plain_pids = spark_hash.pmod(murmur3.hash_planes_plain(kw, kv, kplan, seed), NUM_PARTITIONS)
     if not torch.equal(pids, plain_pids):
@@ -5918,8 +6100,9 @@ def main() -> int:
     }
     for name, ms in stages.items():
         print(f"main path [{name}]: {ms:.3f} ms, {N_MAIN / (ms / 1e3):.4g} rows/s")
-    print(f"main path: {N_MAIN} rows, {row_bytes} row bytes, murmur3 launches {main_launches}",
-          flush=True)
+    print(f"main path: {N_MAIN} rows, {row_bytes} row bytes, murmur3 launches {main_launches}, "
+          f"native launches {json.dumps(rung1_native)}; rows and columns bit-exact against "
+          f"the row kernels' plain versions", flush=True)
     profile_stage("partition_ids", lambda: spark_hash.partition_ids(keys, NUM_PARTITIONS))
     profile_stage("convertToRows", lambda: RowConversion.convertToRows(full))
     profile_stage("convertFromRows", lambda: RowConversion.convertFromRows(rows, schema))
@@ -5930,14 +6113,26 @@ def main() -> int:
         ("strings 1Mi", table_from_numpy(strings_spec(N_WIDE), device="cuda")),
     ):
         sch = [c.dtype for c in table.columns]
+        torch.cuda.synchronize()
+        for c in natives.values():
+            c.launches = 0
         r = RowConversion.convertToRows(table)
-        check_round_trip(table, RowConversion.convertFromRows(r, sch), label)
+        shape_back = RowConversion.convertFromRows(r, sch)
+        torch.cuda.synchronize()
+        shape_native = {k: c.launches for k, c in natives.items()}
+        check_round_trip(table, shape_back, label)
+        if label.startswith("212"):
+            wide_native = shape_native
+            if shape_native["native_to_rows"] < 1 or shape_native["native_from_rows"] < 1:
+                raise AssertionError(f"{label}: a row kernel unlaunched: {shape_native}")
+            rows_against_plain(label, table, r, shape_back)
         nbytes = sum(int(x.data.numel()) for x in r)
         to_ms = host_ms(lambda: RowConversion.convertToRows(table))
         from_ms = host_ms(lambda: RowConversion.convertFromRows(r, sch))
         print(f"{label}: {len(r)} batch(es), {nbytes} row bytes; convertToRows "
-              f"{to_ms:.3f} ms, convertFromRows {from_ms:.3f} ms, exact", flush=True)
-        del table, r
+              f"{to_ms:.3f} ms, convertFromRows {from_ms:.3f} ms, exact; native launches "
+              f"{json.dumps(shape_native)}", flush=True)
+        del table, r, shape_back
 
     phase_done("1-5 device, build, kernel parity, main path, shapes")
 
@@ -5945,10 +6140,19 @@ def main() -> int:
     card_vs_cpu(N_MIXED)
     phase_done("6 card vs cpu")
 
-    counters = {"murmur3_chain": murmur3}
+    counters = {"murmur3_chain": murmur3, **native_counters()}
     launches = {"rung 1": main_launches}
+    # each path's native kernel launches, by family
+    def families(counts):
+        return {k[len("native_"):]: v for k, v in counts.items() if k.startswith("native_")}
+
+    native_by_path = {"rung 1": families(rung1_native), "212 cols": families(wide_native)}
+
+    def took(path, counts):
+        native_by_path[path] = families(counts)
+        return counts["murmur3_chain"]
     # ---- 7. the q1 path at SF10, counted
-    launches["q1"] = q1_sf10(counters, card)["murmur3_chain"]
+    launches["q1"] = took("q1", q1_sf10(counters, card))
     phase_done("7 q1 sf10")
 
     # ---- 8. joins, card against CPU, exact
@@ -5957,7 +6161,7 @@ def main() -> int:
 
     # ---- 9. the q5 path at SF10, counted
     q5_launches, q5_ctx = q5_sf10(counters, card)
-    launches["q5"] = q5_launches["murmur3_chain"]
+    launches["q5"] = took("q5", q5_launches)
     phase_done("9 q5 sf10")
 
     # ---- 10. host JCUDF codec against the card's rows
@@ -5974,7 +6178,7 @@ def main() -> int:
         ss_path = os.path.join(tmp, "store_sales.parquet")
         # ---- 12. store_sales at SF10 through Parquet, counted
         ss_launches, ss_oracles = store_sales_sf10(counters, card, ss_path)
-        launches["store_sales"] = ss_launches["murmur3_chain"]
+        launches["store_sales"] = took("store_sales", ss_launches)
         phase_done("12 store_sales sf10")
 
         # ---- 13. float casts and from_json, card against CPU, exact
@@ -5982,50 +6186,50 @@ def main() -> int:
         phase_done("13 float/from_json card vs cpu")
 
         # ---- 14. the reference's string->float axis, counted
-        launches["float_cast"] = float_axis(counters, card)["murmur3_chain"]
+        launches["float_cast"] = took("float_cast", float_axis(counters, card))
         phase_done("14 float axis")
 
         # ---- 15. from_json over SF10 store_sales, counted
-        launches["from_json"] = from_json_sf10(counters, card, ss_path)["murmur3_chain"]
+        launches["from_json"] = took("from_json", from_json_sf10(counters, card, ss_path))
         phase_done("15 from_json sf10")
 
         # ---- 16. nested Parquet, card and CPU against the generator
-        launches["nested_parquet"] = nested_parquet(
-            counters, card, os.path.join(tmp, "nested.parquet"))["murmur3_chain"]
+        launches["nested_parquet"] = took("nested_parquet", nested_parquet(
+            counters, card, os.path.join(tmp, "nested.parquet")))
         phase_done("16 nested parquet")
 
         # ---- 17. rung 4 through the streamed scan, counted
-        launches["scan"] = scan_sf10(counters, card, ss_path, ss_oracles)["murmur3_chain"]
+        launches["scan"] = took("scan", scan_sf10(counters, card, ss_path, ss_oracles))
         phase_done("17 scan sf10")
 
         # ---- 18. Regex at the regex_scan axes, counted; card against CPU
-        launches["regex"] = regex_phase(counters, card)["murmur3_chain"]
+        launches["regex"] = took("regex", regex_phase(counters, card))
         phase_done("18 regex")
 
         # ---- 19. ZOrder on rung 1's lineitem batch, counted
-        launches["zorder"] = zorder_phase(counters, card)["murmur3_chain"]
+        launches["zorder"] = took("zorder", zorder_phase(counters, card))
         phase_done("19 zorder")
 
         # ---- 20. window and rollup, card against CPU; window over rung 1's batch
-        launches["window"] = window_phase(counters, card, full)["murmur3_chain"]
+        launches["window"] = took("window", window_phase(counters, card, full))
         phase_done("20 window/rollup")
 
         # ---- 21. q1 SF10 through Pipeline.run, stream and two threads, counted
         q1_launches, q1_ctx = q1_pipeline_phase(counters, card)
-        launches["q1_pipeline"] = q1_launches["murmur3_chain"]
+        launches["q1_pipeline"] = took("q1_pipeline", q1_launches)
         phase_done("21 q1 pipeline")
 
         # ---- 22. one q5 lineitem batch through the Pipeline, counted
-        launches["q5_pipeline"] = q5_pipeline_phase(counters, card, q5_ctx)["murmur3_chain"]
+        launches["q5_pipeline"] = took("q5_pipeline", q5_pipeline_phase(counters, card, q5_ctx))
         phase_done("22 q5 pipeline")
 
         # ---- 23. store_sales SF10 through Pipeline.scan_parquet, counted
-        launches["ss_pipeline"] = ss_pipeline_phase(
-            counters, card, ss_path, ss_oracles)["murmur3_chain"]
+        launches["ss_pipeline"] = took("ss_pipeline", ss_pipeline_phase(
+            counters, card, ss_path, ss_oracles))
         phase_done("23 store_sales pipeline")
 
         # ---- 24. the retry runtime on the card, counted
-        launches["retry"] = retry_phase(counters, card, q1_ctx)["murmur3_chain"]
+        launches["retry"] = took("retry", retry_phase(counters, card, q1_ctx))
         phase_done("24 retry")
 
         # ---- 25. the exchange over 8 shards, card against CPU, exact
@@ -6034,17 +6238,17 @@ def main() -> int:
 
         # ---- 26. q5 at SF10 over the exchange, counted
         q5x_launches, exchange_shape = q5_exchange_sf10(counters, card, q5_ctx)
-        launches["q5_exchange"] = q5x_launches["murmur3_chain"]
+        launches["q5_exchange"] = took("q5_exchange", q5x_launches)
         phase_done("26 q5 exchange sf10")
 
         # ---- 27. the mesh executors under the retry runtime, counted
-        launches["mesh_executors"] = mesh_executors_phase(
-            counters, card, q1_ctx, q5_ctx)["murmur3_chain"]
+        launches["mesh_executors"] = took("mesh_executors", mesh_executors_phase(
+            counters, card, q1_ctx, q5_ctx))
         phase_done("27 mesh executors")
 
         # ---- 28. the sharded stream against the unsharded one, counted
-        launches["sharded_stream"] = sharded_stream_phase(
-            counters, card, q1_ctx, q5_ctx)["murmur3_chain"]
+        launches["sharded_stream"] = took("sharded_stream", sharded_stream_phase(
+            counters, card, q1_ctx, q5_ctx))
         phase_done("28 sharded stream")
 
         # ---- 29. four tenants through the serving driver, counted, with
@@ -6053,23 +6257,23 @@ def main() -> int:
 
         if graph_cache_line(pl)["graphs"] < 1:
             raise AssertionError("no graph of phases 21-28 is cached at phase 29's entry")
-        launches["serving"] = serving_phase(
-            counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp)["murmur3_chain"]
+        launches["serving"] = took("serving", serving_phase(
+            counters, card, q1_ctx, q5_ctx, ss_path, ss_oracles, tmp))
         phase_done("29 serving")
 
         # ---- 30. the JNI dispatch over the port's JNI library, counted
-        launches["jni"] = jni_phase(counters, card, ss_path, q1_ctx, full)["murmur3_chain"]
+        launches["jni"] = took("jni", jni_phase(counters, card, ss_path, q1_ctx, full))
         phase_done("30 jni dispatch")
 
         # ---- 31. the runtime-boundary fault injector, counted
-        launches["faultinj"] = faultinj_phase(
-            counters, card, ss_path, q1_ctx, q5_ctx)["murmur3_chain"]
+        launches["faultinj"] = took("faultinj", faultinj_phase(
+            counters, card, ss_path, q1_ctx, q5_ctx))
         del q1_ctx, q5_ctx
         phase_done("31 runtime-boundary faults")
 
         # ---- 32. DOUBLE keys in the exact-bits form, the columnar surface, counted
         dbl_launches, double_key_shape = double_keys_phase(counters, card, full, back, ss_path)
-        launches["double_keys"] = dbl_launches["murmur3_chain"]
+        launches["double_keys"] = took("double_keys", dbl_launches)
         phase_done("32 double keys and the columnar surface")
 
         # ---- 33. the JNI library's native backend, counted
@@ -6083,6 +6287,23 @@ def main() -> int:
     for path, count in launches.items():
         if (count >= 1) != (path in on_exchange):
             raise AssertionError(f"murmur3 launches on the {path} path: {count}")
+    # the port's ops launch the native kernels on these paths (rung 1's
+    # and the 212-column table's counts were checked in phases 4-5)
+    native_paths = {"q1": "decimal128", "q1_pipeline": "decimal128_pipeline_run",
+                    "store_sales": "cast_integer", "float_cast": "cast_float64"}
+    for path, family in native_paths.items():
+        if native_by_path[path].get(family, 0) < 1:
+            raise AssertionError(f"{family} unlaunched on the {path} path: "
+                                 f"{native_by_path[path]}")
+    print(f"native kernel launches by path: {json.dumps(native_by_path)}", flush=True)
+    main_native = {"cast_integer": "store_sales", "cast_float64": "float_cast",
+                   "decimal128": "q1", "to_rows": "rung 1", "from_rows": "rung 1"}
+    for entry in native_entries:
+        family = entry["name"][len("native_"):]
+        entry["launches"] = native_by_path[main_native[family]][family]
+        entry["launches_path"] = main_native[family]
+        entry["launches_by_path"] = {p: c[family] for p, c in native_by_path.items()
+                                     if c.get(family)}
 
     # ---- 34. kernel numbers, card, verdict
     k = timings["keys"]

@@ -372,16 +372,34 @@ int op_decimal(const Plugin* pl, int op, const long* args, int n_args, SprtCallR
   return 0;
 }
 
-// the layout of fixed-width columns of these kinds; false for a kind
-// the rows cannot carry here (strings: the default backend)
-bool layout_of(const std::vector<int>& kinds, RowsDesc* d) {
+// a row layout and the arrays its RowsDesc points to
+struct RowsPlan {
+  std::vector<int32_t> start, size;
+  std::vector<void*> data;
+  std::vector<uint8_t*> valid;
+  RowsDesc d;
+};
+
+// the layout of fixed-width columns of these kinds, any number of them;
+// false for a kind the rows cannot carry here (strings: the default
+// backend)
+bool layout_of(const std::vector<int>& kinds, RowsPlan* p) {
   std::vector<int32_t> sizes;
   for (int k : kinds) {
     if (kind_size(k) == 0) return false;
     sizes.push_back(kind_size(k));
   }
-  std::memset(d, 0, sizeof(*d));
-  return sprt_rowops::row_layout(d, (int32_t)sizes.size(), sizes.data());
+  size_t n = sizes.size();
+  p->start.assign(n, 0);
+  p->size.assign(n, 0);
+  p->data.assign(n, nullptr);
+  p->valid.assign(n, nullptr);
+  std::memset(&p->d, 0, sizeof(p->d));
+  p->d.start = p->start.data();
+  p->d.size = p->size.data();
+  p->d.data = p->data.data();
+  p->d.valid = p->valid.data();
+  return sprt_rowops::row_layout(&p->d, (int32_t)n, sizes.data());
 }
 
 int op_to_rows(const Plugin* pl, bool fixed_width, const long* args, int n_args,
@@ -394,8 +412,9 @@ int op_to_rows(const Plugin* pl, bool fixed_width, const long* args, int n_args,
     if (c->pl != pl) return UNSUPPORTED;
     kinds.push_back(c->kind);
   }
-  RowsDesc d;
-  if (!layout_of(kinds, &d)) return UNSUPPORTED;
+  RowsPlan plan;
+  if (!layout_of(kinds, &plan)) return UNSUPPORTED;
+  RowsDesc& d = plan.d;
   int64_t n = tbl->children[0]->rows;
   for (const Col& c : tbl->children) {
     if (c->rows != n) {
@@ -445,8 +464,9 @@ int op_from_rows(const Plugin* pl, const long* args, int n_args, SprtCallResult*
   if (n_cols > kMaxHandles) return UNSUPPORTED;
   std::vector<int> kinds;
   for (int i = 0; i < n_cols; ++i) kinds.push_back((int)args[1 + i]);
-  RowsDesc d;
-  if (!layout_of(kinds, &d)) return UNSUPPORTED;
+  RowsPlan plan;
+  if (!layout_of(kinds, &plan)) return UNSUPPORTED;
+  RowsDesc& d = plan.d;
   if (d.row_size != rows->row_size) {
     fail(r, "the rows' size differs from the schema's row size");
     return 1;

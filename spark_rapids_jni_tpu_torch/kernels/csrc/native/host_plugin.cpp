@@ -6,10 +6,12 @@
 // caller asks for the CPU (runtime/jni_backend.init_native(device="cpu")).
 // Build with -ffp-contract=off, as the CUDA plugin with --fmad=false.
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <vector>
 
 #include "sprt_plugin.h"
 
@@ -31,6 +33,8 @@ void counted(int family) { g_launches[family].fetch_add(1, std::memory_order_rel
 extern "C" {
 
 int sprtk_init(int device) { return device == 0 ? kOk : kInvalidValue; }
+
+int sprtk_preload(void) { return kOk; }
 
 const char* sprtk_error_string(int rc) {
   switch (rc) {
@@ -143,24 +147,63 @@ int sprtk_row_layout(SprtkRowsDesc* desc, int ncols, const int32_t* sizes) {
   return row_layout(desc, ncols, sizes) ? kOk : kInvalidValue;
 }
 
+// the CUDA plugin's tile transposes, tile by tile on the host: the same
+// windows (plan_window), tile strides and heights (tile_stride,
+// tile_rows) and byte placement (tile_offset, validity_byte,
+// tile_unpack), with memcpy in place of the cp.async copies
 int sprtk_to_rows(const SprtkRowsDesc* desc, int64_t row0, int64_t n, uint8_t* rows, void*) {
   if (n <= 0) return kOk;
-  int32_t words = desc->row_size / 8;
-  for (int64_t r = 0; r < n; ++r) {
-    for (int32_t w = 0; w < words; ++w) {
-      store_le(rows + (r * words + w) * 8, 8, row_word(*desc, row0 + r, w));
+  RowsWin w;
+  for (int32_t w0 = 0; w0 < desc->row_size / 8;) {
+    int32_t w1 = plan_window(*desc, w0, &w);
+    int32_t S = tile_stride(w), R = tile_rows(S);
+    std::vector<uint8_t> tile((size_t)R * S, 0);  // the padding stays 0
+    for (int64_t t0 = 0; t0 < n; t0 += R) {
+      int32_t nr = (int32_t)std::min<int64_t>(R, n - t0);
+      for (int32_t i = 0; i < w.ndata; ++i) {
+        const uint8_t* src = (const uint8_t*)w.data[i] + (row0 + t0) * w.size[i];
+        for (int32_t r = 0; r < nr; ++r) {
+          std::memcpy(tile.data() + tile_offset(w, S, r, i), src + r * w.size[i], w.size[i]);
+        }
+      }
+      for (int32_t b = 0; b < (w.nvalid + 7) / 8; ++b) {
+        for (int32_t r = 0; r < nr; ++r) {
+          tile[r * S + w.vrel + b] = validity_byte(w, row0 + t0 + r, b);
+        }
+      }
+      for (int32_t r = 0; r < nr; ++r) {
+        std::memcpy(rows + (t0 + r) * w.row_size + 8 * w.w0, tile.data() + r * S, 8 * w.nwords);
+      }
     }
+    counted(SPRTK_TO_ROWS);
+    w0 = w1;
   }
-  counted(SPRTK_TO_ROWS);
   return kOk;
 }
 
 int sprtk_from_rows(const SprtkRowsDesc* desc, const uint8_t* rows, int64_t n, void*) {
   if (n <= 0) return kOk;
-  for (int32_t c = 0; c < desc->ncols; ++c) {
-    for (int64_t r = 0; r < n; ++r) row_unpack(*desc, rows + r * desc->row_size, r, c);
+  RowsWin w;
+  for (int32_t w0 = 0; w0 < desc->row_size / 8;) {
+    int32_t w1 = plan_window(*desc, w0, &w);
+    int32_t S = tile_stride(w), R = tile_rows(S);
+    std::vector<uint8_t> stage((size_t)R * S);
+    for (int64_t t0 = 0; t0 < n; t0 += R) {
+      int32_t nr = (int32_t)std::min<int64_t>(R, n - t0);
+      for (int32_t r = 0; r < nr; ++r) {
+        std::memcpy(stage.data() + r * S, rows + (t0 + r) * w.row_size + 8 * w.w0,
+                    (size_t)8 * w.nwords);
+      }
+      for (int32_t i = 0; i < w.ndata; ++i) {
+        for (int32_t r = 0; r < nr; ++r) tile_unpack(w, stage.data() + r * S, t0 + r, i);
+      }
+      for (int32_t i = 0; i < w.nvalid; ++i) {
+        for (int32_t r = 0; r < nr; ++r) tile_unpack_valid(w, stage.data() + r * S, t0 + r, i);
+      }
+    }
+    counted(SPRTK_FROM_ROWS);
+    w0 = w1;
   }
-  counted(SPRTK_FROM_ROWS);
   return kOk;
 }
 

@@ -19,7 +19,9 @@
 
 #include <atomic>
 #include <cstdint>
+#include <map>
 #include <mutex>
+#include <tuple>
 
 #include "sprt_plugin.h"
 
@@ -150,41 +152,241 @@ __global__ void decimal128_kernel(int op, const longlong2* a, const longlong2* b
   }
 }
 
+// --- (d) JCUDF fixed-width rows, as tile transposes through shared memory
+
+// cp.async: global -> shared without passing through registers, 16
+// bytes (.cg, L2 only) of which `src_bytes` are read and the rest
+// zero-filled, or 8 or 4 bytes
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// u / d for u < 2^14 and d <= kWinWords, with magic = ceil(2^32 / d)
+// (exact: u * (magic * d - 2^32) < 2^32)
+__device__ __forceinline__ int32_t div_magic(int32_t u, uint64_t magic) {
+  return (int32_t)(((uint64_t)(uint32_t)u * magic) >> 32);
+}
+
+// rows of tile `tile` (of R rows) among n
+__device__ __forceinline__ int32_t tile_count(int64_t n, int64_t tile, int32_t R) {
+  int64_t left = n - tile * R;
+  return left < R ? (int32_t)left : R;
+}
+
+// to rows: the tile of rows [g0, g0 + nr) assembled in `tile` (stride
+// S): each data column's values at tile_offset, 4, 8 and 16-byte values
+// as cp.async copies straight from the column, 1 and 2-byte values
+// through registers (a warp reads 32 neighbouring values either way);
+// then the validity bytes. The padding bytes were zeroed once and are
+// never written.
+__device__ __forceinline__ void stage_columns(const RowsWin& w, uint8_t* tile, int32_t S,
+                                              int64_t g0, int32_t nr) {
+  for (int32_t i = 0; i < w.ndata; ++i) {
+    int32_t sz = w.size[i];
+    const uint8_t* src = (const uint8_t*)w.data[i] + g0 * sz;
+    if (sz == 16) {
+      for (int32_t r = threadIdx.x; r < nr; r += blockDim.x) {
+        uint8_t* dst = tile + tile_offset(w, S, r, i);
+        cp_async8(dst, src + 16 * r);
+        cp_async8(dst + 8, src + 16 * r + 8);
+      }
+    } else if (sz == 8) {
+      for (int32_t r = threadIdx.x; r < nr; r += blockDim.x) {
+        cp_async8(tile + tile_offset(w, S, r, i), src + 8 * r);
+      }
+    } else if (sz == 4) {
+      for (int32_t r = threadIdx.x; r < nr; r += blockDim.x) {
+        cp_async4(tile + tile_offset(w, S, r, i), src + 4 * r);
+      }
+    } else {
+      for (int32_t r = threadIdx.x; r < nr; r += blockDim.x) {
+        store_le(tile + tile_offset(w, S, r, i), sz, load_le(src + sz * r, sz));
+      }
+    }
+  }
+  for (int32_t b = 0; b < (w.nvalid + 7) / 8; ++b) {
+    for (int32_t r = threadIdx.x; r < nr; r += blockDim.x) {
+      tile[r * S + w.vrel + b] = validity_byte(w, g0 + r, b);
+    }
+  }
+  cp_async_commit();
+}
+
+// from rows: the window bytes of rows [t0, t0 + nr) into `tile` (stride
+// S): the whole row unpadded as one contiguous span of 16-byte copies,
+// else 8-byte copies per row word
+__device__ __forceinline__ void stage_rows(const RowsWin& w, uint8_t* tile, int32_t S,
+                                           const uint8_t* rows, int64_t t0, int32_t nr,
+                                           uint64_t magic) {
+  const uint8_t* src = rows + t0 * w.row_size;
+  if (S == w.row_size && ((uintptr_t)src & 15) == 0) {
+    int32_t nbytes = nr * w.row_size;
+    for (int32_t k = 16 * threadIdx.x; k < nbytes; k += 16 * blockDim.x) {
+      cp_async16(tile + k, src + k, min32(16, nbytes - k));
+    }
+  } else {
+    int32_t units = nr * w.nwords;
+    for (int32_t u = threadIdx.x; u < units; u += blockDim.x) {
+      int32_t r = div_magic(u, magic), j = u - r * w.nwords;
+      cp_async8(tile + r * S + 8 * j, src + (int64_t)r * w.row_size + 8 * (w.w0 + j));
+    }
+  }
+  cp_async_commit();
+}
+
 // (d) columns -> JCUDF fixed-width rows. Replaces
 // native/pjrt/export_ops.py:202 (to_rows: JAX _to_rows_fixed_flat).
 // Bound: bytes: each column byte and validity byte read once, each row
-// byte written once. Design: one thread per 8-byte word of the output,
-// so a warp's stores are 256 contiguous bytes; the thread assembles its
-// word from the (at most eight) columns that overlap it, the layout and
-// the word -> column ranges arriving by value in the parameters
-// (__grid_constant__: read in place, never copied per thread).
-__global__ void to_rows_kernel(const __grid_constant__ RowsDesc d, int64_t row0, int64_t n,
-                               uint64_t* rows) {
-  int32_t words = d.row_size / 8;
-  int64_t total = n * words;
-  for (int64_t k = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; k < total;
-       k += (int64_t)gridDim.x * blockDim.x) {
-    int64_t r = k / words;
-    rows[k] = row_word(d, row0 + r, (int32_t)(k - r * words));
+// byte written once. Design: a tile transpose in shared memory. A
+// persistent block walks tiles of R rows with two row-major tiles: while
+// it writes one out, the next one's columns are in flight as cp.async
+// copies (stage_columns: one uniform loop over the columns, so the
+// layout is read warp-uniformly from the parameters, and a warp's reads
+// of a column are contiguous). A tile's window bytes then leave as
+// 16-byte stores of one contiguous run when the window is the whole
+// row, 8-byte stores per word otherwise. Indices inside a tile are
+// 32-bit; a word index -> (row, word) is a multiply by a magic number.
+// A window (sprt_rowops.h plan_window) carries at most kWinCols columns
+// of a row; a wider schema launches once per window.
+__global__ void __launch_bounds__(kThreads)
+    to_rows_kernel(const __grid_constant__ RowsWin w, int64_t row0, int64_t n, int32_t R,
+                   uint8_t* rows, uint64_t magic) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int32_t S = tile_stride(w);
+  int32_t tile_bytes = R * S;
+  for (int32_t k = 4 * threadIdx.x; k < 2 * tile_bytes; k += 4 * blockDim.x) {
+    *(uint32_t*)(smem + k) = 0;  // the padding, never written again
+  }
+  __syncthreads();
+  int64_t ntiles = (n + R - 1) / R;
+  int64_t tile = blockIdx.x;
+  if (tile < ntiles) stage_columns(w, smem, S, row0 + tile * R, tile_count(n, tile, R));
+  for (int32_t k = 0; tile < ntiles; tile += gridDim.x, ++k) {
+    uint8_t* cur = smem + (k & 1) * tile_bytes;
+    int64_t next = tile + gridDim.x;
+    if (next < ntiles) {
+      stage_columns(w, smem + ((k + 1) & 1) * tile_bytes, S, row0 + next * R,
+                    tile_count(n, next, R));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    int32_t nr = tile_count(n, tile, R);
+    uint8_t* out = rows + tile * R * w.row_size + 8 * w.w0;
+    if (S == w.row_size && ((uintptr_t)out & 15) == 0) {  // the whole row: one run
+      int32_t nbytes = nr * S;
+      for (int32_t b = 16 * threadIdx.x; b < nbytes; b += 16 * blockDim.x) {
+        if (b + 16 <= nbytes) {
+          *(uint4*)(out + b) = *(const uint4*)(cur + b);
+        } else {
+          *(uint64_t*)(out + b) = *(const uint64_t*)(cur + b);
+        }
+      }
+    } else {
+      int32_t units = nr * w.nwords;
+      for (int32_t u = threadIdx.x; u < units; u += blockDim.x) {
+        int32_t r = div_magic(u, magic), j = u - r * w.nwords;
+        *(uint64_t*)(out + (int64_t)r * w.row_size + 8 * j) =
+            *(const uint64_t*)(cur + r * S + 8 * j);
+      }
+    }
+    __syncthreads();
   }
 }
 
 // (d) JCUDF fixed-width rows -> columns. Replaces
 // native/pjrt/export_ops.py:209 (from_rows: JAX _from_rows_fixed_flat).
-// Bound: bytes, as to_rows. Design: one thread per (column, row), rows
-// fastest, so a warp's stores into one column are contiguous; the reads
-// stride by the row size and share the rows' cache lines across the
-// columns of a row.
-__global__ void from_rows_kernel(const __grid_constant__ RowsDesc d, const uint8_t* rows,
-                                 int64_t n) {
-  int64_t total = n * d.ncols;
-  for (int64_t k = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; k < total;
-       k += (int64_t)gridDim.x * blockDim.x) {
-    int32_t c = (int32_t)(k / n);
-    int64_t r = k - c * n;
-    row_unpack(d, rows + r * d.row_size, r, c);
+// Bound: bytes, as to_rows. Design: the mirror image. A persistent
+// block stages a tile's rows once (the whole row: one contiguous span of
+// R * row_size bytes as 16-byte cp.async copies; a window of a wide
+// row: its 8-byte words), the next tile in flight while this one is
+// unpacked, so the row buffer is read once and not once per column.
+// Then, column by column (a block-uniform loop, so the layout is read
+// warp-uniformly from the parameters), thread t writes row t's value
+// and validity byte: each column's stores are contiguous.
+__global__ void __launch_bounds__(kThreads)
+    from_rows_kernel(const __grid_constant__ RowsWin w, const uint8_t* rows, int64_t n,
+                     int32_t R, uint64_t magic) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int32_t S = tile_stride(w);
+  int32_t tile_bytes = R * S;
+  int64_t ntiles = (n + R - 1) / R;
+  int64_t tile = blockIdx.x;
+  if (tile < ntiles) stage_rows(w, smem, S, rows, tile * R, tile_count(n, tile, R), magic);
+  for (int32_t k = 0; tile < ntiles; tile += gridDim.x, ++k) {
+    uint8_t* cur = smem + (k & 1) * tile_bytes;
+    int64_t next = tile + gridDim.x;
+    if (next < ntiles) {
+      stage_rows(w, smem + ((k + 1) & 1) * tile_bytes, S, rows, next * R,
+                 tile_count(n, next, R), magic);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    int32_t nr = tile_count(n, tile, R);
+    int64_t t0 = tile * R;
+    for (int32_t i = 0; i < w.ndata; ++i) {
+      for (int32_t r = threadIdx.x; r < nr; r += blockDim.x) {
+        tile_unpack(w, cur + r * S, t0 + r, i);
+      }
+    }
+    for (int32_t i = 0; i < w.nvalid; ++i) {
+      for (int32_t r = threadIdx.x; r < nr; r += blockDim.x) {
+        tile_unpack_valid(w, cur + r * S, t0 + r, i);
+      }
+    }
+    __syncthreads();
   }
 }
+
+// the grid of a persistent row kernel: every SM filled with as many
+// blocks as fit, never more blocks than tiles. The SM count and the
+// occupancy of each (kernel, shared bytes) are read once and kept: a
+// launch inside a graph capture makes no query
+int persistent_blocks(const void* kernel, int32_t smem_bytes, int64_t ntiles, int* blocks) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int32_t>, int64_t> per_device;  // guarded by mu
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> lk(mu);
+  auto key = std::make_tuple(dev, kernel, smem_bytes);
+  auto it = per_device.find(key);
+  if (it == per_device.end()) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem_bytes);
+    }
+    if (e != cudaSuccess) return (int)e;
+    it = per_device.emplace(key, (int64_t)sms * (per_sm > 0 ? per_sm : 1)).first;
+  }
+  *blocks = (int)(it->second < ntiles ? it->second : ntiles);
+  return 0;
+}
+
+uint64_t magic_of(int32_t d) { return ((1ull << 32) + (uint64_t)d - 1) / (uint64_t)d; }
 
 }  // namespace
 
@@ -309,16 +511,57 @@ int sprtk_row_layout(SprtkRowsDesc* desc, int ncols, const int32_t* sizes) {
 int sprtk_to_rows(const SprtkRowsDesc* desc, int64_t row0, int64_t n, uint8_t* rows,
                   void* stream) {
   if (n <= 0) return 0;
-  to_rows_kernel<<<blocks_for(n * (desc->row_size / 8)), kThreads, 0, (cudaStream_t)stream>>>(
-      *desc, row0, n, (uint64_t*)rows);
-  return counted(SPRTK_TO_ROWS);
+  if (((uintptr_t)rows & 7) != 0) return (int)cudaErrorMisalignedAddress;
+  RowsWin win;
+  for (int32_t w0 = 0; w0 < desc->row_size / 8;) {
+    int32_t w1 = plan_window(*desc, w0, &win);
+    int32_t R = tile_rows(tile_stride(win));
+    int32_t smem = 2 * R * tile_stride(win);
+    int blocks = 0;
+    int rc = persistent_blocks((const void*)to_rows_kernel, smem, (n + R - 1) / R, &blocks);
+    if (rc != 0) return rc;
+    to_rows_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(win, row0, n, R, rows,
+                                                                     magic_of(win.nwords));
+    rc = counted(SPRTK_TO_ROWS);
+    if (rc != 0) return rc;
+    w0 = w1;
+  }
+  return 0;
 }
 
 int sprtk_from_rows(const SprtkRowsDesc* desc, const uint8_t* rows, int64_t n, void* stream) {
   if (n <= 0) return 0;
-  from_rows_kernel<<<blocks_for(n * desc->ncols), kThreads, 0, (cudaStream_t)stream>>>(
-      *desc, rows, n);
-  return counted(SPRTK_FROM_ROWS);
+  if (((uintptr_t)rows & 7) != 0) return (int)cudaErrorMisalignedAddress;
+  RowsWin win;
+  for (int32_t w0 = 0; w0 < desc->row_size / 8;) {
+    int32_t w1 = plan_window(*desc, w0, &win);
+    int32_t R = tile_rows(tile_stride(win));
+    int32_t smem = 2 * R * tile_stride(win);
+    int blocks = 0;
+    int rc = persistent_blocks((const void*)from_rows_kernel, smem, (n + R - 1) / R, &blocks);
+    if (rc != 0) return rc;
+    from_rows_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(win, rows, n, R,
+                                                                       magic_of(win.nwords));
+    rc = counted(SPRTK_FROM_ROWS);
+    if (rc != 0) return rc;
+    w0 = w1;
+  }
+  return 0;
+}
+
+// loads the module of every kernel now (CUDA loads them lazily, at a
+// first launch), so that a first launch inside a graph capture finds
+// it loaded
+int sprtk_preload(void) {
+  cudaFuncAttributes a;
+  const void* kernels[] = {(const void*)cast_integer_kernel, (const void*)cast_float64_kernel,
+                           (const void*)decimal128_kernel, (const void*)to_rows_kernel,
+                           (const void*)from_rows_kernel};
+  for (const void* k : kernels) {
+    cudaError_t e = cudaFuncGetAttributes(&a, k);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 }  // extern "C"

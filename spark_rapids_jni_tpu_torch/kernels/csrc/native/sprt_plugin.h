@@ -40,6 +40,9 @@ extern "C" {
 
 // select the device and make the plugin's stream
 int sprtk_init(int device);
+// load every kernel now, not at its first launch (which may then come
+// inside a CUDA graph capture)
+int sprtk_preload(void);
 const char* sprtk_error_string(int rc);
 void* sprtk_stream(void);
 
@@ -75,15 +78,20 @@ int sprtk_decimal128(int op, const int64_t* a, const int64_t* b, const uint8_t* 
                      const uint8_t* b_valid, int64_t n, int a_scale, int b_scale, int out_scale,
                      int8_t* overflow, int64_t* out, uint8_t* out_valid, void* stream);
 
-// fills desc's layout for ncols columns of these byte sizes
-// (sprt_rowops::row_layout); 0, or 1 for a schema the rows cannot carry
+// fills desc's layout for ncols columns of these byte sizes into its
+// scalars and the start / size arrays it points to (the caller's, of
+// ncols each; sprt_rowops::row_layout); 0, or 1 for a schema the rows
+// cannot carry. Any number of columns.
 int sprtk_row_layout(SprtkRowsDesc* desc, int ncols, const int32_t* sizes);
 
-// rows [row0, row0 + n) of the desc's columns into n packed rows
+// rows [row0, row0 + n) of the desc's columns into n packed rows (rows
+// 8-byte aligned); one kernel launch per window of the row
+// (sprt_rowops::plan_window), one for most schemas
 int sprtk_to_rows(const SprtkRowsDesc* desc, int64_t row0, int64_t n, uint8_t* rows,
                   void* stream);
 
-// n packed rows into the desc's column buffers and validity bytes
+// n packed rows (8-byte aligned) into the desc's column buffers and
+// validity bytes; launches as sprtk_to_rows
 int sprtk_from_rows(const SprtkRowsDesc* desc, const uint8_t* rows, int64_t n, void* stream);
 
 }  // extern "C"

@@ -576,34 +576,59 @@ SPRT_HD inline DecResult multiply(int64_t a_lo, int64_t a_hi, int64_t b_lo, int6
 
 // ---------------------------------------------------------------------------
 // JCUDF fixed-width rows: port ops/row_conversion.py:66
-// compute_row_layout, :233 convert_to_rows_fixed_width_optimized and
-// :330 convert_from_rows_fixed_width_optimized (JAX
+// compute_row_layout, _fixed_section and _decode_fixed (JAX
 // ops/row_conversion.py _to_rows_fixed_flat / _from_rows_fixed_flat).
 // Each column aligned to its size in declared order, the validity bits
 // (LSB first, 1 = valid) after the last column, the row padded with
 // zeros to 8 bytes.
+//
+// Both directions move a tile of rows at a time through a row-major
+// staging tile (shared memory on the card, a heap buffer on the host):
+// the tile holds one window of each of its rows, at a stride of
+// tile_stride bytes. A window is a run of 16-byte units of the row:
+// every column lies inside one unit (a column is aligned to its size,
+// at most 16), so no column straddles two windows. Most schemas are one
+// window (the whole row); a wide one is cut into windows of at most
+// kWinWords words, kWinCols data columns and kWinCols validity columns,
+// which is what a kernel's parameters carry.
 
-constexpr int kRowsMaxCols = 64;
-constexpr int kRowsMaxWords = 132;  // 64 columns of 16 bytes + validity, in words
+constexpr int kWinCols = 128;  // data columns, and validity columns, of one window
+constexpr int kWinWords = 64;  // 8-byte words of one window (512 bytes of a row)
+constexpr int kTileBytes = 16384;  // bytes of one staging tile (one buffer)
+constexpr int kTileRowsMax = 256;
 
+// the layout of a whole row; the caller owns the four arrays of ncols
 struct RowsDesc {
   int32_t ncols;
   int32_t row_size;  // bytes, a multiple of 8
   int32_t validity_offset;
   int32_t validity_bytes;
-  int32_t start[kRowsMaxCols];
-  int32_t size[kRowsMaxCols];  // 1, 2, 4, 8 or 16
-  // the columns of a row's word w are [word_c0[w], word_c1[w])
-  uint8_t word_c0[kRowsMaxWords];
-  uint8_t word_c1[kRowsMaxWords];
-  void* data[kRowsMaxCols];     // n * size bytes each
-  uint8_t* valid[kRowsMaxCols];  // one byte per row; to rows: NULL = all valid
+  int32_t* start;   // byte of each column in the row
+  int32_t* size;    // 1, 2, 4, 8 or 16
+  void** data;      // n * size bytes each
+  uint8_t** valid;  // one byte per row; to rows: NULL = all valid
 };
 
-// fills the layout of `ncols` columns of byte sizes `size`; false when
-// the schema has no columns, too many, or a size the format lacks
+// one window of a row: the columns whose bytes lie in it and the
+// columns whose validity bits lie in it
+struct RowsWin {
+  int32_t row_size;  // bytes of a whole row: the rows' stride
+  int32_t w0;        // the window is words [w0, w0 + nwords) of each row
+  int32_t nwords;
+  int32_t ndata;     // data columns i = 0..ndata-1, in row order
+  int32_t nvalid;    // validity columns i = 0..nvalid-1: bit i % 8 of byte vrel + i / 8
+  int32_t vrel;      // the window's byte of validity column 0
+  int16_t start[kWinCols];  // window byte of data column i
+  int16_t size[kWinCols];
+  void* data[kWinCols];
+  uint8_t* valid[kWinCols];
+};
+
+// fills the layout of `ncols` columns of byte sizes `size` into d's
+// scalars and its start / size arrays; false when the schema has no
+// columns or a size the format lacks
 SPRT_HD inline bool row_layout(RowsDesc* d, int32_t ncols, const int32_t* size) {
-  if (ncols < 1 || ncols > kRowsMaxCols) return false;
+  if (ncols < 1) return false;
   int32_t off = 0;
   for (int32_t i = 0; i < ncols; ++i) {
     int32_t sz = size[i];
@@ -617,15 +642,72 @@ SPRT_HD inline bool row_layout(RowsDesc* d, int32_t ncols, const int32_t* size) 
   d->validity_offset = off;
   d->validity_bytes = (ncols + 7) / 8;
   d->row_size = (off + d->validity_bytes + 7) / 8 * 8;
-  int32_t words = d->row_size / 8;
-  for (int32_t w = 0, c = 0; w < words; ++w) {
-    while (c < ncols && d->start[c] + d->size[c] <= 8 * w) ++c;
-    int32_t e = c;
-    while (e < ncols && d->start[e] < 8 * w + 8) ++e;
-    d->word_c0[w] = (uint8_t)c;
-    d->word_c1[w] = (uint8_t)e;
-  }
   return true;
+}
+
+// the validity columns whose bits lie in row bytes [lo, hi): the first
+// is *c0, the count is returned
+SPRT_HD inline int32_t validity_cols(const RowsDesc& d, int32_t lo, int32_t hi, int32_t* c0) {
+  int32_t b0 = max32(lo, d.validity_offset);
+  int32_t b1 = min32(hi, d.validity_offset + d.validity_bytes);
+  *c0 = 8 * (b0 - d.validity_offset);
+  return b1 > b0 ? min32(8 * (b1 - b0), d.ncols - *c0) : 0;
+}
+
+// the window that starts at word w0 (even): as many whole 16-byte units
+// as stay within kWinWords words, kWinCols data columns and kWinCols
+// validity columns (one unit always fits: 16 data or 128 validity
+// columns). Fills *win and returns the word after it.
+SPRT_HD inline int32_t plan_window(const RowsDesc& d, int32_t w0, RowsWin* win) {
+  int32_t words = d.row_size / 8, lo = 8 * w0;
+  int32_t c = 0;
+  while (c < d.ncols && d.start[c] + d.size[c] <= lo) ++c;
+  int32_t w1 = w0, e = c, vc0 = 0, nv = 0;
+  while (w1 < words) {
+    int32_t nw1 = min32(w1 + 2, words), hi = 8 * nw1;
+    int32_t e1 = e;
+    while (e1 < d.ncols && d.start[e1] < hi) ++e1;
+    int32_t v0;
+    int32_t nv1 = validity_cols(d, lo, hi, &v0);
+    if (w1 > w0 && (nw1 - w0 > kWinWords || e1 - c > kWinCols || nv1 > kWinCols)) break;
+    w1 = nw1;
+    e = e1;
+    nv = nv1;
+    vc0 = v0;
+  }
+  win->row_size = d.row_size;
+  win->w0 = w0;
+  win->nwords = w1 - w0;
+  win->ndata = e - c;
+  win->nvalid = nv;
+  win->vrel = max32(d.validity_offset - lo, 0);
+  for (int32_t i = 0; i < kWinCols; ++i) {
+    bool in = i < e - c;
+    win->start[i] = (int16_t)(in ? d.start[c + i] - lo : 0);
+    win->size[i] = (int16_t)(in ? d.size[c + i] : 0);
+    win->data[i] = in ? d.data[c + i] : nullptr;
+    win->valid[i] = i < nv ? d.valid[vc0 + i] : nullptr;
+  }
+  return w1;
+}
+
+// the staging tile's row stride: the window's bytes, padded by 8 where
+// the rows would all start in one shared-memory bank
+SPRT_HD inline int32_t tile_stride(const RowsWin& w) {
+  int32_t s = 8 * w.nwords;
+  return s % 128 == 0 ? s + 8 : s;
+}
+
+// rows of one tile of stride S: a multiple of 32, kTileBytes at most
+// where 32 rows fit in it
+SPRT_HD inline int32_t tile_rows(int32_t S) {
+  int32_t r = kTileBytes / max32(S, 1) / 32 * 32;
+  return min32(max32(r, 32), kTileRowsMax);
+}
+
+// where data column i of tile row r lies in the tile
+SPRT_HD inline int32_t tile_offset(const RowsWin& w, int32_t S, int32_t r, int32_t i) {
+  return r * S + w.start[i];
 }
 
 // little-endian loads and stores of 1, 2, 4 or 8 bytes at an address
@@ -669,46 +751,35 @@ SPRT_HD inline void store_le(uint8_t* p, int32_t nbytes, uint64_t v) {
 #endif
 }
 
-// word w (8 bytes) of row `row`
-SPRT_HD inline uint64_t row_word(const RowsDesc& d, int64_t row, int32_t w) {
-  uint64_t word = 0;
-  int32_t lo = 8 * w;
-  for (int32_t c = d.word_c0[w]; c < d.word_c1[w]; ++c) {
-    int32_t sz = d.size[c];
-    const uint8_t* src = (const uint8_t*)d.data[c] + row * sz;
-    if (sz == 16) {
-      word |= load_le(src + (lo - d.start[c]), 8);  // the low or the high limb
-    } else {
-      word |= load_le(src, sz) << (8 * (d.start[c] - lo));
-    }
+// the window's validity byte b (window byte vrel + b) of row `row`:
+// bit k is validity column 8b + k, 1 = valid (a NULL mask: all valid)
+SPRT_HD inline uint8_t validity_byte(const RowsWin& w, int64_t row, int32_t b) {
+  uint32_t byte = 0;
+  for (int32_t c = 8 * b; c < min32(8 * b + 8, w.nvalid); ++c) {
+    const uint8_t* v = w.valid[c];
+    byte |= (uint32_t)(v == nullptr || v[row] != 0) << (c - 8 * b);
   }
-  int32_t v0 = max32(d.validity_offset, lo);
-  int32_t v1 = min32(d.validity_offset + d.validity_bytes, lo + 8);
-  for (int32_t b = v0; b < v1; ++b) {
-    int32_t c0 = 8 * (b - d.validity_offset);
-    uint64_t byte = 0;
-    for (int32_t c = c0; c < min32(c0 + 8, d.ncols); ++c) {
-      bool valid = d.valid[c] == nullptr || d.valid[c][row] != 0;
-      byte |= (uint64_t)(valid ? 1 : 0) << (c - c0);
-    }
-    word |= byte << (8 * (b - lo));
-  }
-  return word;
+  return (uint8_t)byte;
 }
 
-// column c of row `row` from the row's bytes into the column buffers
-SPRT_HD inline void row_unpack(const RowsDesc& d, const uint8_t* row_bytes, int64_t row,
-                               int32_t c) {
-  int32_t sz = d.size[c];
-  uint8_t* dst = (uint8_t*)d.data[c] + row * sz;
-  const uint8_t* src = row_bytes + d.start[c];
+// data column i of the row whose staged window bytes are `row`, into
+// the column at row `out_row`
+SPRT_HD inline void tile_unpack(const RowsWin& w, const uint8_t* row, int64_t out_row, int32_t i) {
+  int32_t sz = w.size[i];
+  uint8_t* dst = (uint8_t*)w.data[i] + out_row * sz;
+  const uint8_t* src = row + w.start[i];
   if (sz == 16) {
     store_le(dst, 8, load_le(src, 8));
     store_le(dst + 8, 8, load_le(src + 8, 8));
   } else {
     store_le(dst, sz, load_le(src, sz));
   }
-  d.valid[c][row] = (row_bytes[d.validity_offset + c / 8] >> (c % 8)) & 1;
+}
+
+// validity column i of that row
+SPRT_HD inline void tile_unpack_valid(const RowsWin& w, const uint8_t* row, int64_t out_row,
+                                      int32_t i) {
+  w.valid[i][out_row] = (row[w.vrel + i / 8] >> (i % 8)) & 1;
 }
 
 }  // namespace sprt_rowops

@@ -6,12 +6,15 @@ The JNI library's native backend (``csrc/host/native_backend.cpp``)
 dlopens a plugin and calls its C interface (``sprt_plugin.h``) with no
 Python in the process; ``runtime/jni_backend.init_native`` registers it.
 The wrappers here call the same C functions on tensors the caller
-holds, on PyTorch's current stream, so that a kernel can be timed and
-held against its plain version at the shapes the backend gives it. A
-wrapper launches the CUDA plugin's kernel on CUDA tensors and takes the
-plain version on CPU tensors; there is no fallback from one to the
-other. The plain versions are the port's own ops, the torch
-counterparts of the JAX functions the kernels match:
+holds, on PyTorch's current stream: the port's own ops call them on
+CUDA tensors (``ops/row_conversion`` for fixed-width rows,
+``ops/cast_string`` for the integer and float casts, ``ops/decimal``
+for add, subtract and multiply), and ``chip_smoke.py`` times each
+kernel and holds it against its plain version. A wrapper launches the
+CUDA plugin's kernel on CUDA tensors and takes the plain version on CPU
+tensors; there is no fallback from one to the other, and a build or
+launch failure raises. The plain versions are the port's own torch
+code, the counterparts of the JAX functions the kernels match:
 
 - ``cast_integer``: ``ops/cast_string._parse_integer``;
 - ``cast_float64``: ``ops/cast_string._parse_float``;
@@ -46,8 +49,6 @@ REPLACES = {
     "from_rows": "native/pjrt/export_ops.py:209",
 }
 DEC_OPS = {"add": 0, "sub": 1, "mul": 2}
-MAX_ROW_COLS = 64  # sprt_rowops.h kRowsMaxCols
-_MAX_ROW_WORDS = 132  # sprt_rowops.h kRowsMaxWords
 NO_ROW = 0xFFFFFFFF  # status[0] when no row failed
 
 
@@ -65,25 +66,28 @@ def plugin_path(device) -> str:
 
 
 class RowsDesc(ctypes.Structure):
-    """sprt_rowops.h ``RowsDesc``."""
+    """sprt_rowops.h ``RowsDesc``: the scalars of a row layout and
+    pointers to its per-column arrays (``rows_desc`` keeps them alive
+    on the object)."""
 
     _fields_ = [
         ("ncols", ctypes.c_int32),
         ("row_size", ctypes.c_int32),
         ("validity_offset", ctypes.c_int32),
         ("validity_bytes", ctypes.c_int32),
-        ("start", ctypes.c_int32 * MAX_ROW_COLS),
-        ("size", ctypes.c_int32 * MAX_ROW_COLS),
-        ("word_c0", ctypes.c_uint8 * _MAX_ROW_WORDS),
-        ("word_c1", ctypes.c_uint8 * _MAX_ROW_WORDS),
-        ("data", ctypes.c_void_p * MAX_ROW_COLS),
-        ("valid", ctypes.c_void_p * MAX_ROW_COLS),
+        ("start", ctypes.POINTER(ctypes.c_int32)),
+        ("size", ctypes.POINTER(ctypes.c_int32)),
+        ("data", ctypes.POINTER(ctypes.c_void_p)),
+        ("valid", ctypes.POINTER(ctypes.c_void_p)),
     ]
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "sprtk_error_string": ([_I], ctypes.c_char_p),
+    "sprtk_preload": ([], _I),
+    "sprtk_launches": ([_I], ctypes.c_longlong),
+    "sprtk_reset_launches": ([], None),
     "sprtk_row_layout": ([ctypes.POINTER(RowsDesc), _I, ctypes.POINTER(ctypes.c_int32)], _I),
     "sprtk_cast_to_integer": ([_P, _P, _P, _I64, _I, _I, _I, _P, _P, _P, _P], _I),
     "sprtk_cast_to_float64": ([_P, _P, _P, _I64, _P, _P, _P, _P], _I),
@@ -93,15 +97,29 @@ _SIGNATURES = {
 }
 
 
-def _lib() -> ctypes.CDLL:
-    """The CUDA plugin, with its signatures set. The backend's dlopen of
-    the same file gets the same image, so both share its launch counters
-    (``runtime/jni_backend.native_counts`` reads them)."""
-    lib = _build.load("sprt_native_cuda")
-    for name, (args, res) in _SIGNATURES.items():
-        fn = getattr(lib, name)
+def plugin(name: str = "sprt_native_cuda") -> ctypes.CDLL:
+    """A plugin (``sprt_native_cuda`` or ``sprt_native_host``), built on
+    first use, with its signatures set and, for the CUDA plugin, every
+    kernel loaded (``sprtk_preload``): a graph capture never meets a
+    first load. The backend's dlopen of the same file gets the same
+    image, so both share its launch counters
+    (``runtime/jni_backend.native_counts`` reads them too)."""
+    lib = _build.load(name)
+    if getattr(lib, "_sprtk_bound", False):  # bound since _build last loaded it
+        return lib
+    for fn_name, (args, res) in _SIGNATURES.items():
+        fn = getattr(lib, fn_name)
         fn.argtypes, fn.restype = args, res
+    _run(lib, "sprtk_preload")
+    lib._sprtk_bound = True
     return lib
+
+
+def launch_counts() -> dict:
+    """The CUDA plugin's launches by kernel family (since it was loaded
+    or its ``sprtk_reset_launches``)."""
+    lib = plugin()
+    return {name: int(lib.sprtk_launches(i)) for name, i in FAMILIES.items()}
 
 
 def _ptr(t) -> int | None:
@@ -175,9 +193,9 @@ def cast_integer(chars, offsets, valid, bits: int, ansi: bool, strip: bool):
     out = torch.empty(n, dtype=dt, device=chars.device)
     ok = torch.empty(n, dtype=torch.bool, device=chars.device)
     status = torch.empty(2, dtype=torch.int32, device=chars.device)
-    lib = _lib()
-    _run(lib, "sprtk_cast_to_integer", _ptr(chars), _ptr(offsets), _ptr(valid), n, bits,
-         int(ansi), int(strip), _ptr(out), _ptr(ok), _ptr(status), _stream(chars))
+    with torch.cuda.device(chars.device):
+        _run(plugin(), "sprtk_cast_to_integer", _ptr(chars), _ptr(offsets), _ptr(valid), n,
+             bits, int(ansi), int(strip), _ptr(out), _ptr(ok), _ptr(status), _stream(chars))
     return out, ok, status.to(torch.int64) & 0xFFFFFFFF
 
 
@@ -210,9 +228,9 @@ def cast_float64(chars, offsets, valid):
     out = torch.empty(n, dtype=torch.float64, device=chars.device)
     ok = torch.empty(n, dtype=torch.bool, device=chars.device)
     status = torch.empty(2, dtype=torch.int32, device=chars.device)
-    lib = _lib()
-    _run(lib, "sprtk_cast_to_float64", _ptr(chars), _ptr(offsets), _ptr(valid), n, _ptr(out),
-         _ptr(ok), _ptr(status), _stream(chars))
+    with torch.cuda.device(chars.device):
+        _run(plugin(), "sprtk_cast_to_float64", _ptr(chars), _ptr(offsets), _ptr(valid), n,
+             _ptr(out), _ptr(ok), _ptr(status), _stream(chars))
     return out, ok, status.to(torch.int64) & 0xFFFFFFFF
 
 
@@ -260,24 +278,31 @@ def decimal128(op: str, a, b, a_valid, b_valid, a_scale: int, b_scale: int, out_
     valid = None
     if a_valid is not None or b_valid is not None:
         valid = torch.empty(n, dtype=torch.bool, device=a.device)
-    lib = _lib()
-    _run(lib, "sprtk_decimal128", DEC_OPS[op], _ptr(a), _ptr(b), _ptr(a_valid), _ptr(b_valid), n,
-         a_scale, b_scale, out_scale, _ptr(overflow), _ptr(out), _ptr(valid), _stream(a))
+    with torch.cuda.device(a.device):
+        _run(plugin(), "sprtk_decimal128", DEC_OPS[op], _ptr(a), _ptr(b), _ptr(a_valid),
+             _ptr(b_valid), n, a_scale, b_scale, out_scale, _ptr(overflow), _ptr(out),
+             _ptr(valid), _stream(a))
     return overflow, out, valid
 
 
 # ---- (d) JCUDF fixed-width rows
 
 
-def rows_desc(dtypes: Sequence[DType]) -> RowsDesc:
-    """The row kernels' layout of a fixed-width schema (the plugin's
-    ``sprtk_row_layout``, the rules of
-    ``ops/row_conversion.compute_row_layout``)."""
-    if not 0 < len(dtypes) <= MAX_ROW_COLS or not all(dt.is_fixed_width for dt in dtypes):
-        raise ValueError(f"the row kernels take 1 to {MAX_ROW_COLS} fixed-width columns")
-    sizes = (ctypes.c_int32 * len(dtypes))(*[dt.size_bytes for dt in dtypes])
+def rows_desc(dtypes: Sequence[DType], lib=None) -> RowsDesc:
+    """The row kernels' layout of a fixed-width schema of any width (the
+    plugin's ``sprtk_row_layout``, the rules of
+    ``ops/row_conversion.compute_row_layout``), its data and validity
+    pointers NULL."""
+    n = len(dtypes)
+    if n < 1 or not all(dt.is_fixed_width for dt in dtypes):
+        raise ValueError("the row kernels take one or more fixed-width columns")
+    sizes = (ctypes.c_int32 * n)(*[dt.size_bytes for dt in dtypes])
     d = RowsDesc()
-    _run(_lib(), "sprtk_row_layout", ctypes.byref(d), len(dtypes), sizes)
+    d._arrays = ((ctypes.c_int32 * n)(), (ctypes.c_int32 * n)(), (ctypes.c_void_p * n)(),
+                 (ctypes.c_void_p * n)())
+    d.start, d.size, d.data, d.valid = (ctypes.cast(a, f[1]) for a, f in
+                                        zip(d._arrays, RowsDesc._fields_[4:]))
+    _run(lib or plugin(), "sprtk_row_layout", ctypes.byref(d), n, sizes)
     return d
 
 
@@ -293,21 +318,29 @@ def to_rows_plain(columns) -> torch.Tensor:
 
 
 def to_rows(columns) -> torch.Tensor:
-    """uint8 [n, row_size] JCUDF rows of fixed-width Columns: the kernel
-    on CUDA tensors, the plain version on CPU tensors."""
+    """uint8 [n, row_size] JCUDF rows of fixed-width Columns (any
+    number): the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
     columns = list(columns)
     dev = columns[0].data.device
     if dev.type == "cpu":
         return to_rows_plain(columns)
     d = rows_desc([c.dtype for c in columns])
     n = columns[0].data.shape[0]
+    keep = []  # contiguous copies of strided buffers, alive until the launch
     for i, c in enumerate(columns):
-        if c.data.device != dev or c.data.shape[0] != n or not c.data.is_contiguous():
-            raise ValueError(f"column {i}: rows, device or layout differ from column 0")
-        d.data[i] = c.data.data_ptr()
-        d.valid[i] = None if c.validity is None else c.validity.data_ptr()
+        if c.data.device != dev or c.data.shape[0] != n:
+            raise ValueError(f"column {i}: rows or device differ from column 0")
+        if c.validity is not None and c.validity.dtype != torch.bool:
+            raise TypeError(f"column {i}: validity must be bool, got {c.validity.dtype}")
+        data = c.data.contiguous()
+        valid = None if c.validity is None else c.validity.contiguous()
+        keep.append((data, valid))
+        d.data[i] = data.data_ptr()
+        d.valid[i] = None if valid is None else valid.data_ptr()
     rows = torch.empty((n, d.row_size), dtype=torch.uint8, device=dev)
-    _run(_lib(), "sprtk_to_rows", ctypes.byref(d), 0, n, rows.data_ptr(), _stream(rows))
+    with torch.cuda.device(dev):
+        _run(plugin(), "sprtk_to_rows", ctypes.byref(d), 0, n, rows.data_ptr(), _stream(rows))
     return rows
 
 
@@ -332,6 +365,8 @@ def from_rows(rows: torch.Tensor, dtypes: Sequence[DType]) -> List[Tuple]:
     if rows.shape[1] != d.row_size:
         raise TypeError(f"rows must be uint8 [n, {d.row_size}]")
     rows = rows.contiguous()
+    if rows.data_ptr() % 8:  # a row buffer at an odd byte of its storage
+        rows = rows.clone()
     n = rows.shape[0]
     out = []
     for i, dt in enumerate(dtypes):
@@ -340,5 +375,6 @@ def from_rows(rows: torch.Tensor, dtypes: Sequence[DType]) -> List[Tuple]:
         valid = torch.empty(n, dtype=torch.bool, device=rows.device)
         d.data[i], d.valid[i] = data.data_ptr(), valid.data_ptr()
         out.append((data, valid))
-    _run(_lib(), "sprtk_from_rows", ctypes.byref(d), rows.data_ptr(), n, _stream(rows))
+    with torch.cuda.device(rows.device):
+        _run(plugin(), "sprtk_from_rows", ctypes.byref(d), rows.data_ptr(), n, _stream(rows))
     return out

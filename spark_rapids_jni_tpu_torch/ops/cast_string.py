@@ -25,6 +25,7 @@ import torch
 from ..columnar.column import Column
 from ..columnar.dtypes import DECIMAL32, DECIMAL64, DECIMAL128, DType
 from ..columnar.strings import to_char_matrix
+from ..kernels import native
 from ..runtime.errors import CapacityExceededError, CastException
 from ..utils import int128 as u128
 from ..utils.consts import device_table
@@ -166,6 +167,16 @@ def _raise_first_error(col: Column, bad: torch.Tensor):
     raise CastException(_row_string(col, row), row)
 
 
+# sprtcheck: host-side — the ANSI error report: reads the kernel's first bad row after the cast
+def _raise_status_error(col: Column, status: torch.Tensor):
+    """ANSI mode on the card: the native kernel's status[0] is the first
+    bad row (native.NO_ROW when there is none), so only that word and
+    the offending string cross to the host."""
+    row = int(status[0])
+    if row != native.NO_ROW:
+        raise CastException(_row_string(col, row), row)
+
+
 def _check_width_eager(col: Column, width):
     """A call with a pinned ``width`` must not silently truncate
     (to_char_matrix clamps): the max length is one host sync away, so
@@ -202,10 +213,19 @@ def string_to_integer(
     """CastStrings.toInteger (CastStrings.java:49, cast_string.cu
     string_to_integer:778). ``width`` pins the char-matrix width
     (bytes); by default it is the bucketed max length (one host sync).
-    ``ansi_mode`` raises CastException on the first bad row."""
+    ``ansi_mode`` raises CastException on the first bad row. On the
+    card the native cast_integer kernel parses each string's bytes in
+    place (``width`` is checked, but no char matrix is built)."""
     if out_type.kind not in ("int",):
         raise TypeError(f"not an integer type: {out_type}")
     _check_width_eager(col, width)
+    if col.data.device.type == "cuda":
+        value, valid, status = native.cast_integer(
+            col.data, col.offsets, col.validity, out_type.bits, ansi_mode, strip
+        )
+        if ansi_mode:
+            _raise_status_error(col, status)
+        return Column(out_type, value, _validity_or_none(valid))
     chars, lengths = to_char_matrix(col, width)
     in_valid = col.validity_or_true()
     mag, negative, valid = _parse_integer(
@@ -706,10 +726,17 @@ def string_to_float(
     """CastStrings.toFloat (CastStrings.java:91,
     cast_string_to_float.cu string_to_float:656). Computes in float64
     and narrows, as the reference's double-math-then-cast does.
-    ``width`` pins the char-matrix width (see string_to_integer)."""
+    ``width`` pins the char-matrix width (see string_to_integer). On the
+    card both targets take the native cast_float64 kernel (0.0 at
+    invalid rows), whose FLOAT64 values FLOAT32 narrows."""
     if out_type.kind != "float":
         raise TypeError(f"not a float type: {out_type}")
     _check_width_eager(col, width)
+    if col.data.device.type == "cuda":
+        value, valid, status = native.cast_float64(col.data, col.offsets, col.validity)
+        if ansi_mode:
+            _raise_status_error(col, status)
+        return Column(out_type, value.to(out_type.torch_dtype), _validity_or_none(valid))
     chars, lengths = to_char_matrix(col, width)
     value, valid, except_ = _parse_float(chars, lengths, col.validity_or_true())
     if ansi_mode:

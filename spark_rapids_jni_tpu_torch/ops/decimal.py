@@ -21,6 +21,7 @@ import torch
 from ..columnar.column import Column
 from ..columnar.dtypes import BOOL8, DECIMAL128, INT64
 from ..columnar.table import Table
+from ..kernels import native
 from ..utils import int128 as u128
 from ..utils import int256 as u256
 
@@ -252,6 +253,19 @@ def _divide_kernel(a_limbs, b_limbs, a_scale, b_scale, quot_scale, is_int_div):
     return overflow, u256.to_i128_limbs(result)
 
 
+def _on_card(a: Column) -> bool:
+    return a.data.device.type == "cuda"
+
+
+def _card_kernel(op: str, a: Column, b: Column, a_scale: int, b_scale: int, out_scale: int):
+    """(overflow bool, limbs) of ``a op b`` from the native decimal128
+    kernel (``kernels/native.py``), which computes the scales-any
+    function; the caller masks the overflow with the inputs' validity."""
+    overflow, limbs, _ = native.decimal128(op, a.data.contiguous(), b.data.contiguous(), None,
+                                           None, a_scale, b_scale, out_scale)
+    return overflow.view(torch.bool), limbs
+
+
 # ---------------------------------------------------------------------------
 # public API (mirrors DecimalUtils.java / cudf::jni entries)
 
@@ -276,9 +290,20 @@ def _add_sub(a: Column, b: Column, target_scale: int, is_sub: bool) -> Table:
             "256-bit representation"
         )
     validity = _and_validity(a, b)
-    overflow, limbs = _add_sub_kernel(
-        a.data, b.data, a.dtype.scale, b.dtype.scale, target_scale, is_sub
-    )
+    if _on_card(a):
+        # the plain path's rescale guards (u256.set_scale_and_round),
+        # raised before the launch
+        inter = max(a.dtype.scale, b.dtype.scale)
+        if inter - target_scale > 38:
+            raise ValueError(f"pow10 divisor 10^{inter - target_scale} does not fit in 128 bits")
+        if target_scale - inter > 77:
+            raise ValueError(f"10^{target_scale - inter} does not fit in 256 bits")
+        overflow, limbs = _card_kernel("sub" if is_sub else "add", a, b, a.dtype.scale,
+                                       b.dtype.scale, target_scale)
+    else:
+        overflow, limbs = _add_sub_kernel(
+            a.data, b.data, a.dtype.scale, b.dtype.scale, target_scale, is_sub
+        )
     return _result_table(overflow, limbs, DECIMAL128(38, target_scale), validity)
 
 
@@ -302,7 +327,18 @@ def multiply128(a: Column, b: Column, product_scale: int) -> Table:
         raise ValueError("divisor too big")
     validity = _and_validity(a, b)
     p_sum = a.dtype.precision + b.dtype.precision + 1
-    if product_scale == a.dtype.scale + b.dtype.scale:
+    if _on_card(a):
+        # one kernel for every regime: the scales-any function. With
+        # product_scale == a_scale + b_scale it gives the i128 and
+        # noshift regimes' values, save one: the noshift regime's result
+        # is 0 at every overflow row (|product| >= 10^38; < 10^77 for
+        # 128-bit operands), and the kernel's is 0 there too except at
+        # |product| == 10^38 exactly (precision10 is 38, so no first
+        # rounding; e.g. 10^19 * 10^19), where it keeps the product
+        overflow, limbs = _card_kernel("mul", a, b, a.dtype.scale, b.dtype.scale, product_scale)
+        if product_scale == a.dtype.scale + b.dtype.scale and p_sum > 38:
+            limbs.masked_fill_(overflow[:, None], 0)
+    elif product_scale == a.dtype.scale + b.dtype.scale:
         # Spark's standard multiply typing: the rescale exponent is zero,
         # so no division runs (see the kernels' docstrings)
         if p_sum <= 38:

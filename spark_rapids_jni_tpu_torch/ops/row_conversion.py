@@ -33,6 +33,7 @@ from ..columnar.column import Column
 from ..columnar.dtypes import BINARY, DType
 from ..columnar.strings import bucket_length, from_char_matrix, to_char_matrix
 from ..columnar.table import Table
+from ..kernels import native
 from .ragged import ragged_scatter, ragged_unpack
 from .segmented import hs_cumsum
 
@@ -180,7 +181,10 @@ def convert_to_rows(
         return [_empty_batch(dev)]
     if not layout.var_cols:
         row_size = layout.fixed_only_row_size
-        flat = _fixed_section(table, layout, row_size).reshape(-1)
+        if dev.type == "cuda":  # the row kernel
+            flat = native.to_rows(table.columns).reshape(-1)
+        else:
+            flat = _fixed_section(table, layout, row_size).reshape(-1)
         # constant stride: the batch plan is a division
         per = max_batch_bytes // row_size
         if per >= ROW_BATCH_ALIGN:
@@ -277,6 +281,9 @@ def _from_rows_single(rc: Column, schema: tuple, layout: RowLayout) -> Table:
             rows = data.reshape(n, row_size)
         else:  # sliced or foreign buffer: offsets-driven gather
             rows = ragged_unpack(data, starts, row_size)
+        if rows.device.type == "cuda":  # the row kernel
+            cols = native.from_rows(rows, schema)
+            return Table([Column(dt, d, v) for dt, (d, v) in zip(schema, cols)])
         cols, validity = _decode_fixed(rows, schema, layout)
         return Table([Column(dt, cols[i], validity[i]) for i, dt in enumerate(schema)])
     cols, validity = _decode_fixed(

@@ -652,61 +652,65 @@ def _record_feedback(sig: str, name: str, plan: dict, stats: dict) -> None:
 # and the plan key's shape signature)
 
 
-def _flatten(obj):
-    """(tensor leaves, structure spec) of a Table/Column/list/dict tree."""
+def _tree_types() -> tuple:
     from ..columnar.column import Column
     from ..columnar.table import Table
-
     from ..parallel.mesh import ShardedTable
 
+    return Column, Table, ShardedTable
+
+
+# _flatten and _unflatten recurse through module-level functions: a
+# nested function that calls itself is a reference cycle, which would
+# keep the leaves (a chunk, a graph's output clones) on the card until
+# the next garbage collection instead of until their last reference goes
+def _flatten(obj):
+    """(tensor leaves, structure spec) of a Table/Column/list/dict tree."""
     leaves: List[torch.Tensor] = []
+    return leaves, _enc(obj, leaves, _tree_types())
 
-    def enc(x):
-        if isinstance(x, torch.Tensor):
-            leaves.append(x)
-            return ("T",)
-        if isinstance(x, ShardedTable):
-            return ("Sharded", x.mesh, tuple(enc(t) for t in x.shards))
-        if isinstance(x, Table):
-            return ("Table", tuple(enc(c) for c in x.columns), x.names)
-        if isinstance(x, Column):
-            return ("Col", x.dtype, enc(x.data), enc(x.validity), enc(x.offsets))
-        if isinstance(x, (list, tuple)):
-            return (type(x).__name__, tuple(enc(v) for v in x))
-        if isinstance(x, dict):
-            return ("dict", tuple((k, enc(v)) for k, v in x.items()))
-        return ("C", x)
 
-    return leaves, enc(obj)
+def _enc(x, leaves: list, types: tuple):
+    Column, Table, ShardedTable = types
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return ("T",)
+    if isinstance(x, ShardedTable):
+        return ("Sharded", x.mesh, tuple(_enc(t, leaves, types) for t in x.shards))
+    if isinstance(x, Table):
+        return ("Table", tuple(_enc(c, leaves, types) for c in x.columns), x.names)
+    if isinstance(x, Column):
+        return ("Col", x.dtype, _enc(x.data, leaves, types), _enc(x.validity, leaves, types),
+                _enc(x.offsets, leaves, types))
+    if isinstance(x, (list, tuple)):
+        return (type(x).__name__, tuple(_enc(v, leaves, types) for v in x))
+    if isinstance(x, dict):
+        return ("dict", tuple((k, _enc(v, leaves, types)) for k, v in x.items()))
+    return ("C", x)
 
 
 def _unflatten(spec, leaves: Sequence[torch.Tensor]):
     """Inverse of ``_flatten``: rebuild the tree over ``leaves``."""
-    from ..columnar.column import Column
-    from ..columnar.table import Table
+    return _dec(spec, iter(leaves), _tree_types())
 
-    from ..parallel.mesh import ShardedTable
 
-    it = iter(leaves)
-
-    def dec(s):
-        tag = s[0]
-        if tag == "T":
-            return next(it)
-        if tag == "Sharded":
-            return ShardedTable([dec(t) for t in s[2]], s[1])
-        if tag == "Table":
-            return Table([dec(c) for c in s[1]], s[2])
-        if tag == "Col":
-            return Column(s[1], dec(s[2]), dec(s[3]), dec(s[4]))
-        if tag in ("list", "tuple"):
-            vals = [dec(v) for v in s[1]]
-            return vals if tag == "list" else tuple(vals)
-        if tag == "dict":
-            return {k: dec(v) for k, v in s[1]}
-        return s[1]
-
-    return dec(spec)
+def _dec(s, it, types: tuple):
+    Column, Table, ShardedTable = types
+    tag = s[0]
+    if tag == "T":
+        return next(it)
+    if tag == "Sharded":
+        return ShardedTable([_dec(t, it, types) for t in s[2]], s[1])
+    if tag == "Table":
+        return Table([_dec(c, it, types) for c in s[1]], s[2])
+    if tag == "Col":
+        return Column(s[1], _dec(s[2], it, types), _dec(s[3], it, types), _dec(s[4], it, types))
+    if tag in ("list", "tuple"):
+        vals = [_dec(v, it, types) for v in s[1]]
+        return vals if tag == "list" else tuple(vals)
+    if tag == "dict":
+        return {k: _dec(v, it, types) for k, v in s[1]}
+    return s[1]
 
 
 def _avals_key(tree) -> tuple:

@@ -377,3 +377,33 @@ def test_concurrent_threads_share_one_pipeline():
         assert len(outs) == 3
         for out in outs:
             same_tables(out, want[i])
+
+
+def test_flatten_round_trip_frees_its_leaves_without_a_collection():
+    """A tree taken apart by ``_flatten`` and rebuilt by ``_unflatten``
+    over new leaves (as a graph's output clones are) holds its tensors
+    only through its own references: with the cyclic collector off, the
+    leaves go as soon as the tree does. A stream's retired chunks thus
+    leave the card at retirement, as admission prices them."""
+    import gc
+    import weakref
+
+    t = mixed_table(16, seed=7)
+    leaves, spec = pl._flatten((t, [t.columns[0].data], {"k": t.columns[1].data}))
+    clones = [x.clone() for x in leaves]
+    refs = [weakref.ref(x) for x in clones]
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        tree = pl._unflatten(spec, clones)
+        del clones
+        same_tables(tree[0], t)
+        assert torch.equal(tree[1][0], t.columns[0].data)
+        assert tree[2]["k"] is refs[-1]()
+        assert all(r() is not None for r in refs)
+        del tree
+        assert [r() is None for r in refs] == [True] * len(refs)
+        del leaves
+    finally:
+        if was_enabled:
+            gc.enable()
