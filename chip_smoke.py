@@ -231,6 +231,7 @@ Exits non-zero, printing no verdict, without a card or without the port
 beside it. Data is made from fixed seeds.
 """
 
+import functools
 import gc
 import json
 import os
@@ -263,7 +264,21 @@ N_WIDE = 1 << 20  # 1 Mi rows
 NUM_PARTITIONS = 200
 KEYS = (1, 2)  # l_partkey, l_suppkey
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (data sheet)
+# Hopper's INT32 lanes per SM: 4 sub-partitions x 16 (the 67 TFLOP/s of
+# the data sheet is the float32 FMA rate: 128 FP32 lanes, 2 flops each)
+INT32_LANES_PER_SM = 64
+
+
+@functools.lru_cache(maxsize=None)
+def int_ops_per_s() -> float:
+    """The card's non-tensor 32-bit integer rate: SMs x INT32 lanes per
+    SM x the maximum SM clock that nvidia-smi reports (one operation a
+    lane a clock)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * float(mhz) * 1e6
 
 
 def card_line() -> str:
@@ -2298,6 +2313,20 @@ def float_axis(counters, card):
     same_bytes(f"float axis cast_float64 ({len(chunks[0])} rows)", got64, want64)
     same_bytes(f"float axis cast_float64 validity ({len(chunks[0])} rows)", ok64, wok64)
     del got64, ok64, want64, wok64
+    # the kernel alone on that chunk, against its byte bound: the chars
+    # and offsets read, 8 + 1 bytes a row and the status words written
+    c0 = chunks[0]
+    medians = launch_medians(lambda: native.cast_float64(c0.data, c0.offsets, c0.validity))
+    nbytes = c0.data.numel() + 4 * c0.offsets.numel() + 9 * len(c0) + 8
+    ops = float_cast_ops(c0.offsets)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / int_ops_per_s() * 1e3
+    chunk_kernel = {"rows": len(c0), "ms": float(np.median(medians)), "medians_ms": medians,
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
+                    "int_ops": ops}
+    chunk_kernel["bound_share"] = round(chunk_kernel["bound_ms"] / chunk_kernel["ms"], 4)
+    print(f"float axis cast_float64 kernel alone on a {len(c0)}-row chunk: "
+          f"{json.dumps(chunk_kernel)}; card: {card}", flush=True)
     for i, (c, o) in enumerate(zip(chunks, oracles)):
         check(c, o, f"100 Mi chunk {i}")
     print(f"float axis: 1 Mi and {F_ROWS[1]} rows exact against the oracle (strings made and "
@@ -2315,7 +2344,7 @@ def float_axis(counters, card):
                   lambda: CastStrings.toFloat(chunks[0], False, FLOAT32), top=8)
     print(f"float axis peak device memory: {peak} bytes over the 100 Mi sweep; card: {card}",
           flush=True)
-    return launches
+    return launches, chunk_kernel
 
 
 def from_json_expected(chan):
@@ -5489,7 +5518,7 @@ def kernel_shape(table, seed=42):
         "ms": time_ms(lambda: murmur3.hash_planes(w, v, plan, seed), 50),
         "medians_ms": launch_medians(lambda: murmur3.hash_planes(w, v, plan, seed)),
         "plain_ms": time_ms(lambda: murmur3.hash_planes_plain(w, v, plan, seed), 10),
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3,
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / int_ops_per_s()) * 1e3,
         "bytes": nbytes,
     }
 
@@ -5604,11 +5633,61 @@ def double_keys_phase(counters, card, full, back, ss_path, n=N_MAIN):
 # ---- the JNI library's native backend (phase 33) ----
 
 NATIVE_DEC_SCALES = {"add": (2, 2, 2), "sub": (2, 2, 2), "mul": (2, 2, 4)}  # q1's
+# every scale triple tests/test_torch_native_backend.py holds the host
+# plugin to: q1's, the dividing ones (add (3, 2, 2), (0, 5, 1), (10, 40,
+# 3); mul (2, 2, 2), (10, 10, 6), (19, 19, 0), (2, 3, 1), (30, 10, 2),
+# (6, 2, 0)) and the raising ones
+DEC_SCALES = {
+    "add": [(2, 2, 2), (2, 3, 3), (3, 2, 2), (0, 5, 1), (2, 2, 4), (38, 0, 0), (10, 40, 3),
+            (-3, 2, 1)],
+    "mul": [(2, 2, 4), (2, 2, 2), (10, 10, 6), (19, 19, 0), (0, 0, 5), (2, 3, 1), (30, 10, 2),
+            (6, 2, 0)],
+}
+DEC_SCALES["sub"] = DEC_SCALES["add"]
 NATIVE_DEC_OPS = {"add": "decimal.add128", "sub": "decimal.subtract128",
                   "mul": "decimal.multiply128"}
-# 32-bit integer operations a row needs at least: a 128-bit add and a
-# compare; sixteen 32x32 partial products (lo, hi) and their sums
-NATIVE_DEC_ROW_OPS = {"add": 16, "sub": 16, "mul": 96}
+@functools.lru_cache(maxsize=None)
+def native_sass():
+    """The CUDA plugin's functions, from ``cuobjdump -sass`` of this run's
+    build (``kernels/_sass.py``)."""
+    from spark_rapids_jni_tpu_torch.kernels import _build, _sass, native
+
+    lib = _build.library_path(native.plugin_name("cuda"))
+    return _sass.functions(_sass.cuobjdump_sass(lib, _build._nvcc()))
+
+
+def decimal_floor(mul, regime):
+    """Integer instructions a row of the decimal kernel's instantiation
+    for (multiply or not, regime bits) issues at the least: the cheapest
+    way through its row loop in this build's SASS."""
+    from spark_rapids_jni_tpu_torch.kernels import _sass
+
+    kernel = _sass.find(native_sass(), f"decimal128_kernelILb{int(mul)}ELi{regime}E")
+    return _sass.row_ops(kernel, "STG.E.128")["row"]
+
+
+def decimal_row_ops(op, sa, sb, ts):
+    """decimal_floor of the instantiation the plugin launches for these
+    scales (sprt_rowops.h dec_plan)."""
+    regime = ("none", "divide", "raise", "divide raise").index(dec_regime(op, sa, sb, ts))
+    return decimal_floor(op == "mul", regime)
+
+
+def float_floor():
+    """The float cast's integer instructions at the least, from this
+    build's SASS: a row's cheapest way through its row loop (``row``) and
+    the cheapest turn of a loop that reads a byte (``per_byte``)."""
+    from spark_rapids_jni_tpu_torch.kernels import _sass
+
+    return _sass.row_ops(_sass.find(native_sass(), "cast_float64_kernel"), "STG.E.64")
+
+
+def float_cast_ops(offsets):
+    """float_floor over the strings of these offsets."""
+    c = float_floor()
+    return (offsets.numel() - 1) * c["row"] + int(offsets[-1] - offsets[0]) * c["per_byte"]
+
+
 SMOKE_STRINGS = ["12", " 42 ", "abc", None, "-7"]  # backend_smoke's bench column
 
 
@@ -5650,6 +5729,167 @@ def per_call_ms(call, reps=200):
     return (time.perf_counter() - t) / reps * 1e3
 
 
+def int128_limbs(values):
+    """int64 [n, 2] two's-complement limbs of Python ints in [-2^127, 2^127)."""
+    u = [v & ((1 << 128) - 1) for v in values]
+    return np.array([[x & (2**64 - 1), x >> 64] for x in u], np.uint64).view(np.int64)
+
+
+def decimal_edge_operands(rows=8192, seed=61):
+    """Operand pairs (two lists of Python ints) at the edges of the
+    decimal kernel's arithmetic: 0, +-1, +-5 and +-15 at every power of
+    ten (rounding ties), a value of every digit count to 38, +-(10^38 -
+    1), +-10^38, 2^127 - 1 and -2^127, each against the same values in
+    another order; and, for every k a product's digit count reaches (0
+    to 76), factor pairs whose product is 10^k, 10^k - 1 and 10^k + 1
+    (where no two factors below 2^127 give 10^k -+ 1 exactly: 10^k -+
+    10^j, the same side of the digit boundary), with random signs; then
+    pairs of the edge values drawn at random up to ``rows``."""
+    rng = np.random.default_rng(seed)
+    edges = [0, 1, -1, 10**38 - 1, -(10**38 - 1), 10**38, -(10**38), 2**127 - 1, -(2**127)]
+    edges += [s * m * 10**k for k in range(38) for m in (5, 15) for s in (1, -1)]
+    edges += [s * (int(rng.integers(1, 10)) * 10 ** (d - 1)
+                   + int(rng.integers(0, 10 ** min(d - 1, 18))))
+              for d in range(1, 39) for s in (1, -1)]
+    a = list(edges)
+    b = [edges[i] for i in rng.permutation(len(edges))]
+    for k in range(77):
+        i = min(k, 38)
+        j = k - i
+        pairs = [(10**i, 10**j)]
+        if k % 2 == 0:
+            pairs.append((10 ** (k // 2) - 1, 10 ** (k // 2) + 1))
+        elif k <= 38:
+            pairs.append((10**k - 1, 1))
+        else:
+            pairs.append((10**i - 1, 10**j))
+        if k <= 38:
+            pairs.append((10**k + 1, 1))
+        elif k % 2 == 1 and (10**k + 1) // 11 < 2**127:
+            pairs.append((11, (10**k + 1) // 11))
+        else:
+            pairs.append((10**i + 1, 10**j))
+        for x, y in pairs:
+            sx, sy = rng.choice([-1, 1], 2)
+            a += [int(sx) * x, int(sy) * y]
+            b += [int(sy) * y, int(sx) * x]
+    for i, j in rng.integers(0, len(edges), (max(rows - len(a), 0), 2)):  # edges drawn in pairs
+        a.append(edges[i])
+        b.append(edges[j])
+    return a, b
+
+
+def dec_regime(op, sa, sb, ts):
+    """The rescales a launch's scales ask of every row (sprt_rowops.h
+    dec_plan): 'divide', 'raise', both or 'none'."""
+    if op == "mul":
+        ea = eb = 0
+        delta = sa + sb - ts
+    else:
+        inter = max(sa, sb)
+        ea, eb, delta = inter - sa, inter - sb, inter - ts
+    name = ("divide " if delta > 0 else "") + ("raise" if delta < 0 or ea > 0 or eb > 0 else "")
+    return name.strip() or "none"
+
+
+def float_tile_strings(seed=63):
+    """Strings that stress the float cast's string tiles (``native``
+    FLOAT_TILE_ROWS rows a tile, FLOAT_STAGE_SPAN chars staged): every
+    FLOAT_CASES string, 20-40-digit mantissas, one string longer than a
+    staging buffer alone in a tile and five in a row in another, a tile of
+    100-byte strings (its span past the buffer), a tile of empty strings,
+    an all-null tile and a last partial tile of 77 rows. Returns the
+    interop spec and each part's first row."""
+    from spark_rapids_jni_tpu_torch.kernels import native
+
+    rng = np.random.default_rng(seed)
+    tile, span = native.FLOAT_TILE_ROWS, native.FLOAT_STAGE_SPAN
+
+    def digits(n):
+        return "".join(str(d) for d in rng.integers(0, 10, n))
+
+    def short():
+        return f"{rng.normal() * 10.0 ** rng.integers(-5, 5):.6g}"
+
+    def pad(rows):
+        while len(rows) % tile:
+            rows.append(short())
+
+    rows, parts = [], {}
+    parts["cases"] = len(rows)
+    rows += FLOAT_CASES
+    parts["long mantissas"] = len(rows)
+    for _ in range(2 * tile):
+        m = digits(int(rng.integers(20, 41)))
+        dot = int(rng.integers(0, len(m) + 1))
+        e = f"e{int(rng.integers(-330, 330))}" if rng.random() < 0.5 else ""
+        rows.append(f"{rng.choice(['', '-', '+'])}{m[:dot]}.{m[dot:]}{e}")
+    pad(rows)
+    parts["one long string"] = len(rows)
+    rows += [short() for _ in range(100)] + ["0" * (span + 1000) + "1.5"]
+    pad(rows)
+    parts["five long strings"] = len(rows)
+    rows += [short() for _ in range(10)]
+    rows += [f"  {digits(span + 17 * k)}e-{k}  " for k in range(1, 6)]
+    pad(rows)
+    parts["100-byte strings"] = len(rows)
+    rows += [f"{digits(60)}.{digits(39)}" for _ in range(tile)]
+    parts["empty strings"] = len(rows)
+    rows += [""] * tile
+    parts["null tile"] = len(rows)
+    rows += [None] * tile
+    parts["last partial tile"] = len(rows)
+    rows += [short() for _ in range(77)]
+    return string_spec_from_list(rows, rng, 0.05), parts
+
+
+def native_regimes_against_plain(card):
+    """Phase 33 (c): the redesigned decimal128 and cast_float64 kernels on
+    the card, bit for bit against their plain versions on the same
+    inputs, in every regime they compute: decimal add, subtract and
+    multiply over decimal_edge_operands (10 % nulls) at every DEC_SCALES
+    triple, and the float cast over float_tile_strings. Raises on the
+    first difference; returns the rows checked per regime."""
+    from spark_rapids_jni_tpu_torch.columnar.interop import column_from_numpy
+    from spark_rapids_jni_tpu_torch.kernels import native
+
+    rng = np.random.default_rng(62)
+    av, bv = decimal_edge_operands()
+    a = torch.from_numpy(int128_limbs(av)).cuda()
+    b = torch.from_numpy(int128_limbs(bv)).cuda()
+    va = torch.from_numpy(rng.random(len(av)) >= 0.1).cuda()
+    vb = torch.from_numpy(rng.random(len(av)) >= 0.1).cuda()
+    general = sum(abs(x * y) >= 10**38 for x, y in zip(av, bv))
+    checked = {}
+    for op, triples in DEC_SCALES.items():
+        for sa, sb, ts in triples:
+            got = native.decimal128(op, a, b, va, vb, sa, sb, ts)
+            want = native.decimal128_plain(op, a, b, va, vb, sa, sb, ts)
+            label = f"decimal {op} ({sa}, {sb}, {ts})"
+            for name, g, w in zip(("overflow", "limbs", "validity"), got, want):
+                same_bytes(f"{label} {name}", g, w)
+            key = f"decimal {op} {dec_regime(op, sa, sb, ts)}"
+            checked[key] = checked.get(key, 0) + len(av)
+    spec, parts = float_tile_strings()
+    col = column_from_numpy(spec, "cuda")
+    got = native.cast_float64(col.data, col.offsets, col.validity)
+    want = native.cast_float64_plain(col.data, col.offsets, col.validity)
+    for name, g, w in zip(("values", "validity", "status"), got, want):
+        same_bytes(f"cast_float64 tile strings {name}", g, w)
+    lens = np.diff(spec["offsets"])
+    checked["cast_float64 tile strings"] = len(col)
+    checked["cast_float64 rows past the staged span"] = int(sum(
+        1 for r0 in range(0, len(col), native.FLOAT_TILE_ROWS)
+        for r in range(r0, min(r0 + native.FLOAT_TILE_ROWS, len(col)))
+        if spec["offsets"][r + 1] - spec["offsets"][r0] > native.FLOAT_STAGE_SPAN))
+    torch.cuda.synchronize()
+    print(f"native regimes (c): every row bit-exact against the plain versions on the card: "
+          f"{json.dumps(checked)}; decimal rows whose product passes 10^38 (the general "
+          f"multiply) {general} of {len(av)}; float tile parts at rows {json.dumps(parts)}, "
+          f"longest string {int(lens.max())} bytes; card: {card}", flush=True)
+    return checked
+
+
 def native_backend_phase(card):
     """Phase 33: the JNI library's native backend
     (kernels/csrc/host/native_backend.cpp over the CUDA plugin
@@ -5672,6 +5912,7 @@ def native_backend_phase(card):
     the kernel entries of the JSON line."""
     import ctypes
 
+    import spark_rapids_jni_tpu_torch as torch_port
     from spark_rapids_jni_tpu_torch import INT8, INT32, INT64, Column, Table
     from spark_rapids_jni_tpu_torch.columnar.interop import column_from_numpy, table_from_numpy
     from spark_rapids_jni_tpu_torch.kernels import _build, native
@@ -5879,6 +6120,9 @@ def native_backend_phase(card):
           f"{json.dumps({k: v[3] for k, v in ansi.items()})}; {len(handles)} handles released, "
           f"live bytes 0; unregistered; card: {card}", flush=True)
 
+    # (c) the redesigned kernels in every regime they compute
+    native_regimes_against_plain(card)
+
     # each family's kernel through its wrapper, on torch's stream
     ic, fc = ints, floats
     src = "spark_rapids_jni_tpu_torch/kernels/csrc/native/kernels.cu"
@@ -5889,7 +6133,8 @@ def native_backend_phase(card):
                    for c in tbl.columns)
 
     row_tables = {"wide": wide_t, "narrow": narrow_t,
-                  "rung1": table_from_numpy(lineitem_spec(N_MAIN), device="cuda")}
+                  "rung1": table_from_numpy(lineitem_spec(N_MAIN), device="cuda"),
+                  "cols212": cycled_table(torch_port, N_WIDE)}
     shapes = {
         "cast_integer": (
             lambda: native.cast_integer(ic.data, ic.offsets, ic.validity, 64, False, True),
@@ -5898,12 +6143,16 @@ def native_backend_phase(card):
         "cast_float64": (
             lambda: native.cast_float64(fc.data, fc.offsets, fc.validity),
             lambda: native.cast_float64_plain(fc.data, fc.offsets, fc.validity),
-            fc.data.numel() + 4 * fc.offsets.numel() + N_WIDE * 9 + 8, 0),
-        "decimal128": (
-            lambda: native.decimal128("mul", a, b, dev["dec_valid"], None, 2, 2, 4),
-            lambda: native.decimal128_plain("mul", a, b, dev["dec_valid"], None, 2, 2, 4),
-            N_MAIN * (32 + 1 + 16 + 1 + 1), N_MAIN * NATIVE_DEC_ROW_OPS["mul"]),
+            fc.data.numel() + 4 * fc.offsets.numel() + N_WIDE * 9 + 8,
+            float_cast_ops(fc.offsets)),
     }
+    for op, scales in (("mul", (2, 2, 4)), ("add", (3, 2, 2))):  # q1's multiply; a division
+        key = "decimal128" if op == "mul" else f"decimal128 {op} {scales}"
+        shapes[key] = (
+            lambda op=op, sc=scales: native.decimal128(op, a, b, dev["dec_valid"], None, *sc),
+            lambda op=op, sc=scales: native.decimal128_plain(op, a, b, dev["dec_valid"], None,
+                                                             *sc),
+            N_MAIN * (32 + 1 + 16 + 1 + 1), N_MAIN * decimal_row_ops(op, *scales))
     for label, tbl in row_tables.items():
         types = [c.dtype for c in tbl.columns]
         rows2d = native.to_rows(tbl.columns)
@@ -5927,21 +6176,30 @@ def native_backend_phase(card):
         for u, w in pairs:
             same_bytes(f"native kernel {name}", u, w)
         medians = launch_medians(kernel)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / int_ops_per_s() * 1e3
         rec = {"ms": float(np.median(medians)), "medians_ms": medians,
                "plain_ms": time_ms(plain, 5), "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes}
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
+               "int_ops": ops}
+        rec["bound_share"] = round(rec["bound_ms"] / rec["ms"], 4)
         if name.split()[0] in ("to_rows", "from_rows"):
             # the card's reachable ceiling: one device-to-device copy whose
             # reads and writes add up to the same bytes
             src_buf = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
             dst_buf = torch.empty_like(src_buf)
             rec["copy_ms"] = float(np.median(launch_medians(lambda: dst_buf.copy_(src_buf))))
-            rec["bound_share"] = round(rec["bound_ms"] / rec["ms"], 4)
             rec["copy_share"] = round(rec["copy_ms"] / rec["ms"], 4)
             del src_buf, dst_buf
         timed[name] = rec
         print(f"native kernel [{name}]: {json.dumps(rec)}; card: {card}", flush=True)
+    regimes = ("none", "divide", "raise", "both")
+    floors = {f"decimal {op} {regime}": decimal_floor(op == "mul", k)
+              for op in ("add", "mul") for k, regime in enumerate(regimes)}
+    floors["cast_float64"] = float_floor()
+    print(f"native kernels' integer instructions a row at the least (the cheapest way through "
+          f"the row loop in cuobjdump -sass of this build; the float cast's per byte): "
+          f"{json.dumps(floors)}; INT32 rate {int_ops_per_s():.6g}/s (SMs x "
+          f"{INT32_LANES_PER_SM} lanes x the max SM clock); card: {card}", flush=True)
     entries = []
     for family in NATIVE_FAMILIES:
         key = {"to_rows": "to_rows rung1", "from_rows": "from_rows rung1"}.get(family, family)
@@ -5952,6 +6210,8 @@ def native_backend_phase(card):
         if family in ("to_rows", "from_rows"):
             entry["schemas"] = {k.split()[1]: v for k, v in timed.items()
                                 if k.split()[0] == family}
+        if family == "decimal128":
+            entry["shapes"] = {k: v for k, v in timed.items() if k.startswith("decimal128 ")}
         entries.append(entry)
     return entries
 
@@ -6033,7 +6293,7 @@ def main() -> int:
         plain_ms = time_ms(lambda: murmur3.hash_planes_plain(w, v, plan, seed), 10)
         nbytes = 4 * w.numel() + v.numel() + 4 * n
         ops = n * (11 * w.shape[0] + 10 * len(plan))
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / int_ops_per_s() * 1e3
         timings[label] = {
             "W": w.shape[0], "V": v.shape[0], "n": n, "ms": ms, "plain_ms": plain_ms,
             "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
@@ -6186,7 +6446,8 @@ def main() -> int:
         phase_done("13 float/from_json card vs cpu")
 
         # ---- 14. the reference's string->float axis, counted
-        launches["float_cast"] = took("float_cast", float_axis(counters, card))
+        float_launches, float_chunk = float_axis(counters, card)
+        launches["float_cast"] = took("float_cast", float_launches)
         phase_done("14 float axis")
 
         # ---- 15. from_json over SF10 store_sales, counted
@@ -6304,6 +6565,8 @@ def main() -> int:
         entry["launches_path"] = main_native[family]
         entry["launches_by_path"] = {p: c[family] for p, c in native_by_path.items()
                                      if c.get(family)}
+        if family == "cast_float64":
+            entry["shapes"] = {"float axis 16 Mi chunk": float_chunk}
 
     # ---- 34. kernel numbers, card, verdict
     k = timings["keys"]

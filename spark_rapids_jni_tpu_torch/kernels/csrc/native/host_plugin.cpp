@@ -28,6 +28,42 @@ std::atomic<long long> g_live{0};
 
 void counted(int family) { g_launches[family].fetch_add(1, std::memory_order_relaxed); }
 
+// the rows of one decimal launch, in the plan's op and regime R
+template <bool MUL, int32_t R>
+void dec_rows_in(const DecPlan& p, const int64_t* a, const int64_t* b, const uint8_t* a_valid,
+                 const uint8_t* b_valid, int64_t n, int8_t* overflow, int64_t* out,
+                 uint8_t* out_valid) {
+  for (int64_t i = 0; i < n; ++i) {
+    DecResult r = decimal_row<MUL, R>(p, a[2 * i], a[2 * i + 1], b[2 * i], b[2 * i + 1],
+                                      kPow10x4_host);
+    bool v = (a_valid == nullptr || a_valid[i] != 0) && (b_valid == nullptr || b_valid[i] != 0);
+    out[2 * i] = r.lo;
+    out[2 * i + 1] = r.hi;
+    overflow[i] = (r.overflow && v) ? 1 : 0;
+    if (out_valid != nullptr) out_valid[i] = v ? 1 : 0;
+  }
+}
+
+template <bool MUL>
+void dec_rows(const DecPlan& p, const int64_t* a, const int64_t* b, const uint8_t* a_valid,
+              const uint8_t* b_valid, int64_t n, int8_t* overflow, int64_t* out,
+              uint8_t* out_valid) {
+  switch (p.regime) {
+    case 0:
+      dec_rows_in<MUL, 0>(p, a, b, a_valid, b_valid, n, overflow, out, out_valid);
+      break;
+    case kDecDown:
+      dec_rows_in<MUL, kDecDown>(p, a, b, a_valid, b_valid, n, overflow, out, out_valid);
+      break;
+    case kDecUp:
+      dec_rows_in<MUL, kDecUp>(p, a, b, a_valid, b_valid, n, overflow, out, out_valid);
+      break;
+    default:
+      dec_rows_in<MUL, kDecDown | kDecUp>(p, a, b, a_valid, b_valid, n, overflow, out,
+                                           out_valid);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -105,19 +141,30 @@ int sprtk_cast_to_integer(const uint8_t* chars, const int32_t* offsets, const ui
   return kOk;
 }
 
+// the CUDA kernel's tiles, tile by tile: the same span of each tile's
+// chars staged (sprt_rowops.h staged_end, into a buffer of the kernel's
+// size), the same rows parsed from it and the others from the chars
 int sprtk_cast_to_float64(const uint8_t* chars, const int32_t* offsets, const uint8_t* valid,
                           int64_t n, double* out, uint8_t* out_valid, uint32_t* status, void*) {
   status[0] = 0xffffffffu;
   status[1] = 0;
   if (n <= 0) return kOk;
-  for (int64_t i = 0; i < n; ++i) {
-    bool in_valid = valid == nullptr || valid[i] != 0;
-    int32_t len = in_valid ? offsets[i + 1] - offsets[i] : 0;
-    FloatParse r = parse_float(chars + offsets[i], len, in_valid);
-    out[i] = r.value;
-    out_valid[i] = r.valid ? 1 : 0;
-    if (!r.valid) ++status[1];
-    if (r.except && status[0] == 0xffffffffu) status[0] = (uint32_t)i;
+  std::vector<uint8_t> stage(kFloatStageBytes);
+  for (int64_t r0 = 0; r0 < n; r0 += kFloatTileRows) {
+    int64_t r1 = std::min<int64_t>(r0 + kFloatTileRows, n);
+    int32_t base = offsets[r0], end = staged_end(base, offsets[r1]);
+    if (end > base) std::memcpy(stage.data(), chars + base, (size_t)(end - base));
+    for (int64_t i = r0; i < r1; ++i) {
+      bool in_valid = valid == nullptr || valid[i] != 0;
+      int32_t o = offsets[i], len = in_valid ? offsets[i + 1] - o : 0;
+      FloatParse r = offsets[i + 1] <= end
+                         ? parse_float<true>(stage.data() + (o - base), len, in_valid, kFloatTables)
+                         : parse_float<false>(chars + o, len, in_valid, kFloatTables);
+      out[i] = r.value;
+      out_valid[i] = r.valid ? 1 : 0;
+      if (!r.valid) ++status[1];
+      if (r.except && status[0] == 0xffffffffu) status[0] = (uint32_t)i;
+    }
   }
   counted(SPRTK_CAST_FLOAT64);
   return kOk;
@@ -127,17 +174,11 @@ int sprtk_decimal128(int op, const int64_t* a, const int64_t* b, const uint8_t* 
                      const uint8_t* b_valid, int64_t n, int a_scale, int b_scale, int out_scale,
                      int8_t* overflow, int64_t* out, uint8_t* out_valid, void*) {
   if (n <= 0) return kOk;
-  for (int64_t i = 0; i < n; ++i) {
-    DecResult r = op == SPRTK_DEC_MUL
-                      ? multiply(a[2 * i], a[2 * i + 1], b[2 * i], b[2 * i + 1], a_scale,
-                                 b_scale, out_scale)
-                      : add_sub(a[2 * i], a[2 * i + 1], b[2 * i], b[2 * i + 1], a_scale,
-                                b_scale, out_scale, op == SPRTK_DEC_SUB);
-    bool v = (a_valid == nullptr || a_valid[i] != 0) && (b_valid == nullptr || b_valid[i] != 0);
-    out[2 * i] = r.lo;
-    out[2 * i + 1] = r.hi;
-    overflow[i] = (r.overflow && v) ? 1 : 0;
-    if (out_valid != nullptr) out_valid[i] = v ? 1 : 0;
+  DecPlan p = dec_plan(op == SPRTK_DEC_MUL, op == SPRTK_DEC_SUB, a_scale, b_scale, out_scale);
+  if (p.mul) {  // the instantiation the CUDA plugin launches
+    dec_rows<true>(p, a, b, a_valid, b_valid, n, overflow, out, out_valid);
+  } else {
+    dec_rows<false>(p, a, b, a_valid, b_valid, n, overflow, out, out_valid);
   }
   counted(SPRTK_DECIMAL128);
   return kOk;

@@ -102,57 +102,8 @@ __global__ void cast_integer_kernel(const uint8_t* chars, const int32_t* offsets
   report(status, first, count);
 }
 
-// (b) string -> FLOAT64. Replaces native/pjrt/export_ops.py:160
-// (cast_f64: JAX _parse_float). Bound: bytes, as (a): 8 + 1 bytes out
-// per row; the double arithmetic is a few operations per row, far under
-// the card's float64 rate. Design: as (a); the powers of ten are small
-// tables in device memory (cached), read with per-row indices.
-__global__ void cast_float64_kernel(const uint8_t* chars, const int32_t* offsets,
-                                    const uint8_t* valid, int64_t n, double* out,
-                                    uint8_t* out_valid, uint32_t* status) {
-  uint32_t first = 0xffffffffu, count = 0;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    bool in_valid = valid == nullptr || valid[i] != 0;
-    int32_t o0 = offsets[i];
-    int32_t len = in_valid ? offsets[i + 1] - o0 : 0;
-    FloatParse r = parse_float(chars + o0, len, in_valid);
-    out[i] = r.value;
-    out_valid[i] = r.valid ? 1 : 0;
-    if (!r.valid) ++count;
-    if (r.except && first == 0xffffffffu) first = (uint32_t)i;
-  }
-  report(status, first, count);
-}
-
-// (c) DECIMAL128 add / subtract / multiply at run-time scales. Replaces
-// native/pjrt/export_ops.py:176-195 (JAX _add_sub_scales_any,
-// _multiply_scales_any). Bound: bytes at Spark's common scales (32 bytes
-// in, 17 or 18 out per row), where a row is one 256-bit multiply (ten
-// 64x64 partial products) and a digit count; a rescale that divides adds
-// a bit-serial 256-by-128 division (some 2,000 operations), and then the
-// integer operations bound it. Design: one thread per row with its two
-// operands in registers as 16-byte loads; the division runs only in rows
-// and ops whose scales need it, from the dividend's highest set bit.
-__global__ void decimal128_kernel(int op, const longlong2* a, const longlong2* b,
-                                  const uint8_t* a_valid, const uint8_t* b_valid, int64_t n,
-                                  int a_scale, int b_scale, int out_scale, int8_t* overflow,
-                                  longlong2* out, uint8_t* out_valid) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    longlong2 x = a[i], y = b[i];
-    DecResult r = op == SPRTK_DEC_MUL
-                      ? multiply(x.x, x.y, y.x, y.y, a_scale, b_scale, out_scale)
-                      : add_sub(x.x, x.y, y.x, y.y, a_scale, b_scale, out_scale,
-                                op == SPRTK_DEC_SUB);
-    bool v = (a_valid == nullptr || a_valid[i] != 0) && (b_valid == nullptr || b_valid[i] != 0);
-    out[i] = make_longlong2(r.lo, r.hi);
-    overflow[i] = (r.overflow && v) ? 1 : 0;
-    if (out_valid != nullptr) out_valid[i] = v ? 1 : 0;
-  }
-}
-
-// --- (d) JCUDF fixed-width rows, as tile transposes through shared memory
+// --- staging through shared memory: the string tiles of (b), the row
+// tiles of (d)
 
 // cp.async: global -> shared without passing through registers, 16
 // bytes (.cg, L2 only) of which `src_bytes` are read and the rest
@@ -191,6 +142,169 @@ __device__ __forceinline__ int32_t tile_count(int64_t n, int64_t tile, int32_t R
   int64_t left = n - tile * R;
   return left < R ? (int32_t)left : R;
 }
+
+// --- (b) string -> FLOAT64, over string tiles staged in shared memory
+
+constexpr int32_t kFloatRowsPerThread = kFloatTileRows / kThreads;
+static_assert(kFloatTileRows % kThreads == 0, "a tile is whole rows of the block's threads");
+
+// a tile's offsets and the span of its chars that fits the buffer
+// (sprt_rowops.h staged_end), as cp.async copies: 4 bytes per offset,
+// 16-byte units of the chars from the aligned unit that holds the span's
+// first byte to the one that holds its last (the first unit's bytes
+// before the span share its 16-byte unit, so they lie in the same
+// allocation; the last unit reads only up to the span's end)
+__device__ __forceinline__ void stage_strings(const uint8_t* chars, const int32_t* offsets,
+                                              int64_t r0, int32_t nr, uint8_t* buf,
+                                              int32_t* offs) {
+  for (int32_t i = threadIdx.x; i <= nr; i += blockDim.x) cp_async4(offs + i, offsets + r0 + i);
+  int32_t o0 = offsets[r0], o1 = staged_end(o0, offsets[r0 + nr]);
+  uintptr_t lo = (uintptr_t)(chars + o0) & ~(uintptr_t)15;
+  uintptr_t hi = o1 > o0 ? (uintptr_t)(chars + o1) : lo;  // nothing for an empty span
+  for (uintptr_t a = lo + 16 * threadIdx.x; a < hi; a += 16 * blockDim.x) {
+    cp_async16(buf + (a - lo), (const void*)a, hi - a < 16 ? (int)(hi - a) : 16);
+  }
+  cp_async_commit();
+}
+
+// one validity byte per row r (consecutive over a warp's lanes, r0 of
+// the warp a multiple of 4): four rows as one 32-bit store where the
+// four lie in range and the address is aligned, else a byte each. Every
+// lane of the warp calls it.
+__device__ __forceinline__ void store_valid4(uint8_t* out_valid, int64_t r, int64_t n,
+                                             uint32_t v) {
+  uint32_t w = v | (__shfl_down_sync(0xffffffffu, v, 1) << 8) |
+               (__shfl_down_sync(0xffffffffu, v, 2) << 16) |
+               (__shfl_down_sync(0xffffffffu, v, 3) << 24);
+  int64_t r4 = r & ~(int64_t)3;
+  if (((uintptr_t)(out_valid + r4) & 3) == 0 && r4 + 4 <= n) {
+    if ((r & 3) == 0) *(uint32_t*)(out_valid + r) = w;
+  } else if (r < n) {
+    out_valid[r] = (uint8_t)v;
+  }
+}
+
+// (b) string -> FLOAT64. Replaces native/pjrt/export_ops.py:160
+// (cast_f64: JAX _parse_float). Bound: bytes (the chars and offsets
+// read once, 8 + 1 bytes written a row); at the reference's ~12-byte
+// strings the parse's dependent steps, one thread a row, take most of
+// the time (staging alone runs near the byte bound). Design: a
+// persistent block walks tiles of kFloatTileRows rows, four rows a
+// thread (1024-row tiles timed faster than 256 or 512). Each tile's
+// offsets and chars are staged in shared memory by cp.async 16-byte
+// copies, the next tile's in flight while this one is parsed (two
+// buffers), so a warp reads whole 16-byte units of device memory
+// instead of one byte a thread. Each thread parses its rows in one
+// forward pass (sprt_rowops.h parse_float) from the buffer, digit runs
+// eight bytes at a time; a row that ends past the span the buffer holds
+// is parsed in place, a byte at a time. The powers of ten are in shared
+// memory (each row indexes them its own way); validity bytes leave four
+// to a store; the first ANSI row and the invalid count are reduced per
+// warp into two atomics.
+__global__ void __launch_bounds__(kThreads)
+    cast_float64_kernel(const uint8_t* chars, const int32_t* offsets, const uint8_t* valid,
+                        int64_t n, double* out, uint8_t* out_valid, uint32_t* status) {
+  __shared__ __align__(16) uint8_t stage[2][kFloatStageBytes];
+  __shared__ int32_t offs[2][kFloatTileRows + 1];
+  __shared__ FloatTables tab;
+  for (int32_t i = threadIdx.x; i < (int32_t)(sizeof(FloatTables) / 8); i += blockDim.x) {
+    ((uint64_t*)&tab)[i] = ((const uint64_t*)&kFloatTablesDev)[i];
+  }
+  uint32_t first = 0xffffffffu, count = 0;
+  const int32_t R = kFloatTileRows;
+  int64_t ntiles = (n + R - 1) / R;
+  int64_t tile = blockIdx.x;
+  if (tile < ntiles) stage_strings(chars, offsets, tile * R, tile_count(n, tile, R), stage[0],
+                                   offs[0]);
+  for (int32_t k = 0; tile < ntiles; tile += gridDim.x, ++k) {
+    int32_t b = k & 1;
+    int64_t next = tile + gridDim.x;
+    if (next < ntiles) {
+      stage_strings(chars, offsets, next * R, tile_count(n, next, R), stage[b ^ 1], offs[b ^ 1]);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    int32_t nr = tile_count(n, tile, R);
+    const int32_t* o = offs[b];
+    int32_t span_end = staged_end(o[0], o[nr]);
+    const uint8_t* staged = stage[b] + ((uintptr_t)(chars + o[0]) & 15);
+    for (int32_t u = 0; u < kFloatRowsPerThread; ++u) {
+      int32_t t = u * kThreads + threadIdx.x;  // the row in the tile
+      int64_t r = tile * R + t;
+      uint32_t vbyte = 0;
+      if (t < nr) {
+        bool in_valid = valid == nullptr || valid[r] != 0;
+        int32_t o0 = o[t], o1 = o[t + 1], len = in_valid ? o1 - o0 : 0;
+        // two inlined copies of the parse: the staged one reads shared
+        // memory as such, eight bytes at a time in digit runs; the other
+        // global memory a byte at a time
+        FloatParse p = o1 <= span_end
+                           ? parse_float<true>(staged + (o0 - o[0]), len, in_valid, tab)
+                           : parse_float<false>(chars + o0, len, in_valid, tab);
+        out[r] = p.value;
+        vbyte = p.valid ? 1 : 0;
+        if (!p.valid) ++count;
+        if (p.except && first == 0xffffffffu) first = (uint32_t)r;
+      }
+      store_valid4(out_valid, r, n, vbyte);
+    }
+    __syncthreads();
+  }
+  report(status, first, count);
+}
+
+// (c) DECIMAL128 add / subtract / multiply at run-time scales. Replaces
+// native/pjrt/export_ops.py:176-195 (JAX _add_sub_scales_any,
+// _multiply_scales_any). Bound: bytes (32 bytes in, 17 or 18 out per
+// row) where the launch's scales need no rescale; a division by 10^k
+// (one or two steps of 64-bit long division by a precomputed
+// reciprocal) or a raise adds integer work. Design: one
+// instantiation per regime of the launch's scales (sprt_rowops.h
+// dec_plan: the host picks it), so q1's multiply (2, 2 -> 4) compiles no
+// rescale at all; a product is |a| * |b| in four 64x64 partial products
+// (one when both fit 64 bits) and its digits are counted from its bit
+// length against the table of 10^k, which the raising instantiations
+// keep in shared memory (each row indexes it its own way). A product
+// over 38 digits takes the general form out of line. The grid fills
+// every SM with as many blocks as fit, one row a thread at a time.
+template <bool MUL, int32_t R>
+__global__ void __launch_bounds__(kThreads)
+    decimal128_kernel(DecPlan p, const longlong2* __restrict__ a, const longlong2* __restrict__ b,
+                      const uint8_t* __restrict__ a_valid, const uint8_t* __restrict__ b_valid,
+                      int64_t n, int8_t* __restrict__ overflow, longlong2* __restrict__ out,
+                      uint8_t* __restrict__ out_valid) {
+  constexpr bool kShared = (R & kDecUp) != 0;
+  __shared__ uint64_t p10s[kShared ? 4 * 78 : 1];
+  const uint64_t* p10 = kPow10x4_dev;
+  if (kShared) {
+    for (int32_t i = threadIdx.x; i < 4 * 78; i += blockDim.x) p10s[i] = kPow10x4_dev[i];
+    __syncthreads();
+    p10 = p10s;
+  }
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    longlong2 x = __ldg(a + i), y = __ldg(b + i);
+    bool v = (a_valid == nullptr || __ldg(a_valid + i) != 0) &&
+             (b_valid == nullptr || __ldg(b_valid + i) != 0);
+    DecResult r = decimal_row<MUL, R>(p, x.x, x.y, y.x, y.y, p10);
+    out[i] = make_longlong2(r.lo, r.hi);
+    overflow[i] = (r.overflow && v) ? 1 : 0;
+    if (out_valid != nullptr) out_valid[i] = v ? 1 : 0;
+  }
+}
+
+// the instantiation of each plan: [multiply][regime]
+const void* const kDecimalKernels[2][4] = {
+    {(const void*)decimal128_kernel<false, 0>, (const void*)decimal128_kernel<false, kDecDown>,
+     (const void*)decimal128_kernel<false, kDecUp>,
+     (const void*)decimal128_kernel<false, kDecDown | kDecUp>},
+    {(const void*)decimal128_kernel<true, 0>, (const void*)decimal128_kernel<true, kDecDown>,
+     (const void*)decimal128_kernel<true, kDecUp>,
+     (const void*)decimal128_kernel<true, kDecDown | kDecUp>}};
+
+// --- (d) JCUDF fixed-width rows, as tile transposes through shared memory
 
 // to rows: the tile of rows [g0, g0 + nr) assembled in `tile` (stride
 // S): each data column's values at tile_offset, 4, 8 and 16-byte values
@@ -489,8 +603,12 @@ int sprtk_cast_to_float64(const uint8_t* chars, const int32_t* offsets, const ui
   cudaStream_t s = (cudaStream_t)stream;
   int rc = init_status(status, s);
   if (rc != 0 || n <= 0) return rc;
-  cast_float64_kernel<<<blocks_for(n), kThreads, 0, s>>>(chars, offsets, valid, n, out,
-                                                         out_valid, status);
+  int blocks = 0;
+  rc = persistent_blocks((const void*)cast_float64_kernel, 0,
+                         (n + kFloatTileRows - 1) / kFloatTileRows, &blocks);
+  if (rc != 0) return rc;
+  cast_float64_kernel<<<blocks, kThreads, 0, s>>>(chars, offsets, valid, n, out, out_valid,
+                                                  status);
   return counted(SPRTK_CAST_FLOAT64);
 }
 
@@ -498,9 +616,15 @@ int sprtk_decimal128(int op, const int64_t* a, const int64_t* b, const uint8_t* 
                      const uint8_t* b_valid, int64_t n, int a_scale, int b_scale, int out_scale,
                      int8_t* overflow, int64_t* out, uint8_t* out_valid, void* stream) {
   if (n <= 0) return 0;
-  decimal128_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      op, (const longlong2*)a, (const longlong2*)b, a_valid, b_valid, n, a_scale, b_scale,
-      out_scale, overflow, (longlong2*)out, out_valid);
+  DecPlan p = dec_plan(op == SPRTK_DEC_MUL, op == SPRTK_DEC_SUB, a_scale, b_scale, out_scale);
+  void* args[] = {&p, &a, &b, &a_valid, &b_valid, &n, &overflow, &out, &out_valid};
+  int blocks = 0;
+  int rc = persistent_blocks(kDecimalKernels[p.mul][p.regime], 0, (n + kThreads - 1) / kThreads,
+                             &blocks);
+  if (rc != 0) return rc;
+  cudaError_t e = cudaLaunchKernel(kDecimalKernels[p.mul][p.regime], dim3(blocks), dim3(kThreads), args,
+                                   0, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return counted(SPRTK_DECIMAL128);
 }
 
@@ -555,11 +679,16 @@ int sprtk_from_rows(const SprtkRowsDesc* desc, const uint8_t* rows, int64_t n, v
 int sprtk_preload(void) {
   cudaFuncAttributes a;
   const void* kernels[] = {(const void*)cast_integer_kernel, (const void*)cast_float64_kernel,
-                           (const void*)decimal128_kernel, (const void*)to_rows_kernel,
-                           (const void*)from_rows_kernel};
+                           (const void*)to_rows_kernel, (const void*)from_rows_kernel};
   for (const void* k : kernels) {
     cudaError_t e = cudaFuncGetAttributes(&a, k);
     if (e != cudaSuccess) return (int)e;
+  }
+  for (const auto& per_op : kDecimalKernels) {
+    for (const void* k : per_op) {
+      cudaError_t e = cudaFuncGetAttributes(&a, k);
+      if (e != cudaSuccess) return (int)e;
+    }
   }
   return 0;
 }

@@ -21,18 +21,27 @@
 #ifdef __CUDACC__
 #define SPRT_HD __host__ __device__
 // a constant table: one copy in host memory, one in device memory
+// (global memory, read through L1, or the constant bank for a table
+// that every thread of a launch reads at the same index)
 #define SPRT_TABLE(type, name, ...)                      \
   static const type name##_host[] = {__VA_ARGS__};       \
   static __device__ type name##_dev[] = {__VA_ARGS__};
+#define SPRT_CTABLE(type, name, ...)                     \
+  static const type name##_host[] = {__VA_ARGS__};       \
+  static __constant__ type name##_dev[] = {__VA_ARGS__};
 #else
 #define SPRT_HD
 #define SPRT_TABLE(type, name, ...) static const type name##_host[] = {__VA_ARGS__};
+#define SPRT_CTABLE(type, name, ...) static const type name##_host[] = {__VA_ARGS__};
 #endif
 
 #ifdef __CUDA_ARCH__
 #define SPRT_AT(name, i) (name##_dev[i])
+// a loop over limbs unrolled, so that the limbs stay in registers
+#define SPRT_UNROLL _Pragma("unroll")
 #else
 #define SPRT_AT(name, i) (name##_host[i])
+#define SPRT_UNROLL
 #endif
 
 namespace sprt_rowops {
@@ -142,58 +151,79 @@ SPRT_HD inline IntParse parse_integer(const uint8_t* s, int32_t len, bool in_val
 
 // ---------------------------------------------------------------------------
 // string -> FLOAT64: JAX ops/cast_string.py _parse_float; port
-// ops/cast_string.py:540 _parse_float. The reference's quirks: 'nan'
+// ops/cast_string.py:560 _parse_float. The reference's quirks: 'nan'
 // only as the whole 3-byte string, inf/infinity must end the string
 // (invalid but no ANSI error otherwise), one f/F/d/D suffix after a
 // nonzero value, manual exponents of at most 4 digits, 19 (+1)
 // significant digits with the rest truncated into the exponent.
 // Subnormal results are kept (the JAX package on the CPU flushes them).
 
-// 10^(32q), q = 0..10 (inf past 10^308)
-SPRT_TABLE(uint64_t, kPow10Hi, 0x3ff0000000000000ULL, 0x4693b8b5b5056e17ULL,
-           0x4d384f03e93ff9f5ULL, 0x53ddf67562d8b363ULL, 0x5a827748f9301d32ULL,
-           0x6126c2d4256ffcc3ULL, 0x67cc0e1ef1a724ebULL, 0x6e714a52dffc6799ULL,
-           0x75154fdd7f73bf3cULL, 0x7bba44df832b8d46ULL, 0x7ff0000000000000ULL)
-// 10^k, k = 0..56, correctly rounded (its first 32 entries are also the
-// low factor 10^r of the two-level product)
-SPRT_TABLE(uint64_t, kPow10Sub1, 0x3ff0000000000000ULL, 0x4024000000000000ULL,
-           0x4059000000000000ULL, 0x408f400000000000ULL, 0x40c3880000000000ULL,
-           0x40f86a0000000000ULL, 0x412e848000000000ULL, 0x416312d000000000ULL,
-           0x4197d78400000000ULL, 0x41cdcd6500000000ULL, 0x4202a05f20000000ULL,
-           0x42374876e8000000ULL, 0x426d1a94a2000000ULL, 0x42a2309ce5400000ULL,
-           0x42d6bcc41e900000ULL, 0x430c6bf526340000ULL, 0x4341c37937e08000ULL,
-           0x4376345785d8a000ULL, 0x43abc16d674ec800ULL, 0x43e158e460913d00ULL,
-           0x4415af1d78b58c40ULL, 0x444b1ae4d6e2ef50ULL, 0x4480f0cf064dd592ULL,
-           0x44b52d02c7e14af6ULL, 0x44ea784379d99db4ULL, 0x45208b2a2c280291ULL,
-           0x4554adf4b7320335ULL, 0x4589d971e4fe8402ULL, 0x45c027e72f1f1281ULL,
-           0x45f431e0fae6d721ULL, 0x46293e5939a08ceaULL, 0x465f8def8808b024ULL,
-           0x4693b8b5b5056e17ULL, 0x46c8a6e32246c99cULL, 0x46fed09bead87c03ULL,
-           0x4733426172c74d82ULL, 0x476812f9cf7920e3ULL, 0x479e17b84357691bULL,
-           0x47d2ced32a16a1b1ULL, 0x48078287f49c4a1dULL, 0x483d6329f1c35ca5ULL,
-           0x48725dfa371a19e7ULL, 0x48a6f578c4e0a061ULL, 0x48dcb2d6f618c879ULL,
-           0x4911efc659cf7d4cULL, 0x49466bb7f0435c9eULL, 0x497c06a5ec5433c6ULL,
-           0x49b18427b3b4a05cULL, 0x49e5e531a0a1c873ULL, 0x4a1b5e7e08ca3a8fULL,
-           0x4a511b0ec57e649aULL, 0x4a8561d276ddfdc0ULL, 0x4ababa4714957d30ULL,
-           0x4af0b46c6cdd6e3eULL, 0x4b24e1878814c9ceULL, 0x4b5a19e96a19fc41ULL,
-           0x4b905031e2503da9ULL)
-// 10^(k - 307), k = 0..19, correctly rounded
-SPRT_TABLE(uint64_t, kPow10SubNeg, 0x0031fa182c40c60dULL, 0x0066789e3750f791ULL,
-           0x009c16c5c5253575ULL, 0x00d18e3b9b374169ULL, 0x0105f1ca820511c3ULL,
-           0x013b6e3d22865634ULL, 0x017124e63593f5e1ULL, 0x01a56e1fc2f8f359ULL,
-           0x01dac9a7b3b7302fULL, 0x0210be08d0527e1dULL, 0x0244ed8b04671da5ULL,
-           0x027a28edc580e50eULL, 0x02b059949b708f29ULL, 0x02e46ff9c24cb2f3ULL,
-           0x03198bf832dfdfb0ULL, 0x034feef63f97d79cULL, 0x0383f559e7bee6c1ULL,
-           0x03b8f2b061aea072ULL, 0x03ef2f5c7a1a488eULL, 0x04237d99cc506d59ULL)
-// 10^k, k = 0..19, as integers
-SPRT_TABLE(uint64_t, kPow10U64, 1ULL, 10ULL, 100ULL, 1000ULL, 10000ULL, 100000ULL, 1000000ULL,
-           10000000ULL, 100000000ULL, 1000000000ULL, 10000000000ULL, 100000000000ULL,
-           1000000000000ULL, 10000000000000ULL, 100000000000000ULL, 1000000000000000ULL,
-           10000000000000000ULL, 100000000000000000ULL, 1000000000000000000ULL,
-           10000000000000000000ULL)
+// the parse's powers of ten, one block of 864 bytes (the CUDA kernel
+// copies it into shared memory: the rows index it each their own way)
+struct FloatTables {
+  uint64_t hi[11];      // 10^(32q), q = 0..10 (inf past 10^308)
+  uint64_t sub1[57];    // 10^k, k = 0..56, correctly rounded (the first 32
+                        // are also the low factor 10^r of the two-level product)
+  uint64_t subneg[20];  // 10^(k - 307), k = 0..19, correctly rounded
+  uint64_t u64[20];     // 10^k, k = 0..19, as integers
+};
+
+#define SPRT_FLOAT_TABLES                                                                     \
+  {                                                                                           \
+    {0x3ff0000000000000ULL, 0x4693b8b5b5056e17ULL, 0x4d384f03e93ff9f5ULL,                     \
+     0x53ddf67562d8b363ULL, 0x5a827748f9301d32ULL, 0x6126c2d4256ffcc3ULL,                     \
+     0x67cc0e1ef1a724ebULL, 0x6e714a52dffc6799ULL, 0x75154fdd7f73bf3cULL,                     \
+     0x7bba44df832b8d46ULL, 0x7ff0000000000000ULL},                                           \
+        {0x3ff0000000000000ULL, 0x4024000000000000ULL, 0x4059000000000000ULL,                 \
+         0x408f400000000000ULL, 0x40c3880000000000ULL, 0x40f86a0000000000ULL,                 \
+         0x412e848000000000ULL, 0x416312d000000000ULL, 0x4197d78400000000ULL,                 \
+         0x41cdcd6500000000ULL, 0x4202a05f20000000ULL, 0x42374876e8000000ULL,                 \
+         0x426d1a94a2000000ULL, 0x42a2309ce5400000ULL, 0x42d6bcc41e900000ULL,                 \
+         0x430c6bf526340000ULL, 0x4341c37937e08000ULL, 0x4376345785d8a000ULL,                 \
+         0x43abc16d674ec800ULL, 0x43e158e460913d00ULL, 0x4415af1d78b58c40ULL,                 \
+         0x444b1ae4d6e2ef50ULL, 0x4480f0cf064dd592ULL, 0x44b52d02c7e14af6ULL,                 \
+         0x44ea784379d99db4ULL, 0x45208b2a2c280291ULL, 0x4554adf4b7320335ULL,                 \
+         0x4589d971e4fe8402ULL, 0x45c027e72f1f1281ULL, 0x45f431e0fae6d721ULL,                 \
+         0x46293e5939a08ceaULL, 0x465f8def8808b024ULL, 0x4693b8b5b5056e17ULL,                 \
+         0x46c8a6e32246c99cULL, 0x46fed09bead87c03ULL, 0x4733426172c74d82ULL,                 \
+         0x476812f9cf7920e3ULL, 0x479e17b84357691bULL, 0x47d2ced32a16a1b1ULL,                 \
+         0x48078287f49c4a1dULL, 0x483d6329f1c35ca5ULL, 0x48725dfa371a19e7ULL,                 \
+         0x48a6f578c4e0a061ULL, 0x48dcb2d6f618c879ULL, 0x4911efc659cf7d4cULL,                 \
+         0x49466bb7f0435c9eULL, 0x497c06a5ec5433c6ULL, 0x49b18427b3b4a05cULL,                 \
+         0x49e5e531a0a1c873ULL, 0x4a1b5e7e08ca3a8fULL, 0x4a511b0ec57e649aULL,                 \
+         0x4a8561d276ddfdc0ULL, 0x4ababa4714957d30ULL, 0x4af0b46c6cdd6e3eULL,                 \
+         0x4b24e1878814c9ceULL, 0x4b5a19e96a19fc41ULL, 0x4b905031e2503da9ULL},                \
+        {0x0031fa182c40c60dULL, 0x0066789e3750f791ULL, 0x009c16c5c5253575ULL,                 \
+         0x00d18e3b9b374169ULL, 0x0105f1ca820511c3ULL, 0x013b6e3d22865634ULL,                 \
+         0x017124e63593f5e1ULL, 0x01a56e1fc2f8f359ULL, 0x01dac9a7b3b7302fULL,                 \
+         0x0210be08d0527e1dULL, 0x0244ed8b04671da5ULL, 0x027a28edc580e50eULL,                 \
+         0x02b059949b708f29ULL, 0x02e46ff9c24cb2f3ULL, 0x03198bf832dfdfb0ULL,                 \
+         0x034feef63f97d79cULL, 0x0383f559e7bee6c1ULL, 0x03b8f2b061aea072ULL,                 \
+         0x03ef2f5c7a1a488eULL, 0x04237d99cc506d59ULL},                                       \
+    {                                                                                         \
+      1ULL, 10ULL, 100ULL, 1000ULL, 10000ULL, 100000ULL, 1000000ULL, 10000000ULL,             \
+          100000000ULL, 1000000000ULL, 10000000000ULL, 100000000000ULL, 1000000000000ULL,     \
+          10000000000000ULL, 100000000000000ULL, 1000000000000000ULL, 10000000000000000ULL,   \
+          100000000000000000ULL, 1000000000000000000ULL, 10000000000000000000ULL              \
+    }                                                                                         \
+  }
+
+static const FloatTables kFloatTables = SPRT_FLOAT_TABLES;
+#ifdef __CUDACC__
+static __device__ const FloatTables kFloatTablesDev = SPRT_FLOAT_TABLES;
+#endif
 
 constexpr uint64_t kMaxHolding = 1844674407370955160ULL;  // (2^64 - 1 - 9) / 10
 constexpr uint64_t kQuietNan = 0x7ff8000000000000ULL;
 constexpr uint64_t kInf = 0x7ff0000000000000ULL;
+
+SPRT_HD inline int32_t clz64(uint64_t x) {  // x != 0
+#ifdef __CUDA_ARCH__
+  return __clzll((long long)x);
+#else
+  return __builtin_clzll(x);
+#endif
+}
 
 // the correctly rounded double of a uint64: values >= 2^63 halve with
 // the dropped bit kept as a sticky bit, convert, and double
@@ -208,11 +238,20 @@ SPRT_HD inline double u64_to_f64(uint64_t bits) {
 
 // 10^a for a >= 0: the correctly rounded table up to 56, the two-level
 // product 10^(32q) * 10^r above (inf past 10^308)
-SPRT_HD inline double pow10_pos(int32_t a) {
+SPRT_HD inline double pow10_pos(int32_t a, const FloatTables& T) {
   a = min32(max32(a, 0), 341);
-  if (a <= 56) return bits_f64(SPRT_AT(kPow10Sub1, a));
-  double v = bits_f64(SPRT_AT(kPow10Hi, a >> 5)) * bits_f64(SPRT_AT(kPow10Sub1, a & 31));
+  if (a <= 56) return bits_f64(T.sub1[a]);
+  double v = bits_f64(T.hi[a >> 5]) * bits_f64(T.sub1[a & 31]);
   return v != v ? bits_f64(kInf) : v;
+}
+
+// decimal digits of x, at most 19 (0 for 0): from the bit length, d =
+// floor((bits - 1) * log10(2)) = ((bits - 1) * 1233) >> 12 exactly for
+// bits <= 256, then one compare with 10^(d + 1)
+SPRT_HD inline int32_t digits10_u64(uint64_t x, const FloatTables& T) {
+  if (x == 0) return 0;
+  int32_t d = ((63 - clz64(x)) * 1233) >> 12;
+  return min32(d + 1 + (x >= T.u64[d + 1] ? 1 : 0), 19);
 }
 
 SPRT_HD inline bool word_at(const uint8_t* s, int32_t len, int32_t base, const char* w, int n) {
@@ -229,139 +268,351 @@ struct FloatParse {
   bool except;  // an ANSI error at this row
 };
 
-SPRT_HD inline FloatParse parse_float(const uint8_t* s, int32_t len, bool in_valid) {
-  int32_t start;
-  bool negative;
-  prologue(s, len, true, &start, &negative);
+// eight bytes from s, which need not be aligned (little-endian: s[0] is
+// the lowest byte); on the card the two aligned words that hold them are
+// read, so the caller guarantees 16 readable bytes from s
+SPRT_HD inline uint64_t load8(const uint8_t* s) {
+#ifdef __CUDA_ARCH__
+  uintptr_t a = (uintptr_t)s;
+  const uint64_t* w = (const uint64_t*)(a & ~(uintptr_t)7);
+  uint32_t sh = 8 * (uint32_t)(a & 7);
+  uint64_t lo = w[0];
+  return sh == 0 ? lo : (lo >> sh) | (w[1] << (64 - sh));
+#else
+  uint64_t x;
+  __builtin_memcpy(&x, s, 8);
+  return x;
+#endif
+}
 
-  bool is_nan = word_at(s, len, start, "nan", 3);
-  bool nan_exact = is_nan && len == 3;
-  bool is_inf3 = word_at(s, len, start, "inf", 3);
-  bool is_inf8 = is_inf3 && word_at(s, len, start + 3, "inity", 5);
-  bool inf_value = (is_inf3 && start + 3 == len) || (is_inf8 && start + 8 == len);
+SPRT_HD inline int32_t ctz64(uint64_t x) {  // x != 0
+#ifdef __CUDA_ARCH__
+  return __ffsll((long long)x) - 1;
+#else
+  return __builtin_ctzll(x);
+#endif
+}
 
-  // mantissa: the run of digits and at most one dot from `start`
-  int32_t D1 = NONE;
-  int32_t M = start;
-  while (M < len && (is_digit(s[M]) || (s[M] == '.' && D1 == NONE))) {
-    if (s[M] == '.') D1 = M;
-    ++M;
+// the value of the k (1..8) decimal digits in the low bytes of x (x's
+// lowest byte the first digit): the k digits moved up behind 8 - k '0'
+// bytes, then eight digits at once (Lemire, "Number Parsing at a
+// Gigabyte per Second", 2021)
+SPRT_HD inline uint64_t digits8_value(uint64_t x, int32_t k) {
+  if (k < 8) x = (x << (64 - 8 * k)) | (0x3030303030303030ULL >> (8 * k));
+  x -= 0x3030303030303030ULL;
+  x = x * 10 + (x >> 8);
+  return (((x & 0x000000FF000000FFULL) * (100 + (1000000ULL << 32))) +
+          (((x >> 16) & 0x000000FF000000FFULL) * (1 + (10000ULL << 32)))) >>
+         32;
+}
+
+// the digits of one run of the mantissa from *p on: the first 19 kept
+// positions accumulate into *digits18, the 20th is the extra digit, the
+// rest only count (*R: kept positions so far). kWide: eight bytes are read
+// at a time while the run's digits stay within the first 19 (see
+// parse_float); the rest of a run goes a byte at a time.
+template <bool kWide>
+SPRT_HD inline void digit_run(const uint8_t* s, int32_t len, int32_t* p, int32_t* R,
+                              uint64_t* digits18, int32_t* extra_d, const FloatTables& T) {
+  int32_t q = *p, r = *R;
+  uint64_t v = *digits18;
+  if (kWide) {
+    while (q < len) {
+      uint64_t x = load8(s + q);
+      // a byte is a digit when its high nibble is 3 and its low one at most
+      // 9: each byte of m is 0 exactly then; bytes past the string count as
+      // non-digits
+      uint64_t m = ((x & 0xF0F0F0F0F0F0F0F0ULL) ^ 0x3030303030303030ULL) |
+                   (((x & 0x0F0F0F0F0F0F0F0FULL) + 0x0606060606060606ULL) & 0xF0F0F0F0F0F0F0F0ULL);
+      int32_t left = len - q;
+      if (left < 8) m |= ~0ULL << (8 * left);
+      int32_t k = m == 0 ? 8 : ctz64(m) >> 3;
+      if (k == 0 || r + k > 19) break;
+      v = v * T.u64[k] + digits8_value(x, k);
+      r += k;
+      q += k;
+      if (k < 8) {
+        *p = q;
+        *R = r;
+        *digits18 = v;
+        return;
+      }
+    }
   }
-  if (M > len) M = len;
-  bool has_dot = D1 < M;
-  int32_t nd = 0, pre_dot = 0, first_nz = -1;
-  for (int32_t p = start; p < M; ++p) {
-    if (!is_digit(s[p])) continue;
-    if (first_nz < 0 && s[p] != '0') first_nz = nd;
-    if (p < D1) ++pre_dot;
+  for (; q < len; ++q) {
+    uint32_t d = (uint32_t)s[q] - '0';
+    if (d > 9) break;
+    if (r < 19) {
+      v = v * 10u + d;
+    } else if (r == 19) {
+      *extra_d = (int32_t)d;
+    }
+    ++r;
+  }
+  *p = q;
+  *R = r;
+  *digits18 = v;
+}
+
+// One forward pass over the bytes: whitespace, sign, a nan / inf word,
+// the mantissa, the exponent, the suffix and the trailing whitespace,
+// each byte read once. `s` may point at shared or global memory. The
+// mantissa's zeros before any nonzero digit and before the dot are
+// stripped; every other digit takes the next kept position (digit_run),
+// before the dot and after it. kWide: digit runs are read eight bytes at
+// a time (load8: on the card two aligned words), so 16 bytes must be
+// readable from every byte of the string (the staged copy of a tile has
+// that slack; the chars in place do not).
+template <bool kWide>
+SPRT_HD inline FloatParse parse_float(const uint8_t* s, int32_t len, bool in_valid,
+                                      const FloatTables& T) {
+  int32_t p = 0;
+  while (p < len && is_ws(s[p])) ++p;
+  bool negative = false;
+  if (p < len && (s[p] == '+' || s[p] == '-')) {
+    negative = s[p] == '-';
+    ++p;
+  }
+  int32_t start = p;
+  double signf = negative ? -1.0 : 1.0;
+  FloatParse out = {0.0, false, false};
+  int c0 = p < len ? lower(s[p]) : 0;
+  if (c0 == 'n' && word_at(s, len, start, "nan", 3)) {
+    bool exact = len == 3;
+    out.valid = in_valid && exact;
+    out.except = in_valid && !exact;
+    out.value = out.valid ? bits_f64(kQuietNan) : 0.0;
+    return out;
+  }
+  if (c0 == 'i' && word_at(s, len, start, "inf", 3)) {
+    bool inf8 = word_at(s, len, start + 3, "inity", 5);
+    bool inf_value = start + 3 == len || (inf8 && start + 8 == len);
+    out.valid = in_valid && inf_value;
+    out.value = out.valid ? signf * bits_f64(kInf) : 0.0;
+    return out;
+  }
+
+  // the mantissa
+  uint64_t digits18 = 0;
+  int32_t nd = 0, R = 0, after_dot = 0;  // digits; kept positions; of them after the dot
+  int32_t extra_d = 0;
+  while (p < len && s[p] == '0') {
+    ++p;
     ++nd;
   }
-  if (first_nz < 0) first_nz = nd;
-  int32_t stripped = min32(has_dot ? pre_dot : nd, first_nz);
-  int32_t R = nd - stripped;
-  bool seen_valid_digit = nd > 0 || stripped > 0;
-  int32_t kept18 = min32(R, 19);
-  uint64_t digits18 = 0;
-  int64_t extra_d = 0;
-  for (int32_t p = start, k = 0; p < M; ++p) {
-    if (!is_digit(s[p])) continue;
-    if (k >= stripped && k < stripped + kept18) digits18 = digits18 * 10u + (uint64_t)(s[p] - '0');
-    if (k == stripped + kept18) extra_d = s[p] - '0';
-    ++k;
+  digit_run<kWide>(s, len, &p, &R, &digits18, &extra_d, T);
+  bool dot = p < len && s[p] == '.';
+  if (dot) {
+    ++p;
+    int32_t before = R;
+    digit_run<kWide>(s, len, &p, &R, &digits18, &extra_d, T);
+    after_dot = R - before;
   }
+  nd += R;
   bool take_extra = R > 19 && (uint64_t)((int64_t)kMaxHolding - extra_d) / 10u >= digits18;
   uint64_t digits = take_extra ? digits18 * 10u + (uint64_t)extra_d : digits18;
-  int32_t kept = kept18 + (take_extra ? 1 : 0);
-  int32_t trunc = R - kept;
-  int32_t decimal_pos = max32(pre_dot - stripped, 0);
-  int32_t exp_base = trunc - (has_dot ? R - decimal_pos : 0);
+  int32_t kept = min32(R, 19) + (take_extra ? 1 : 0);
+  int32_t exp_base = (R - kept) - (dot ? after_dot : 0);
 
-  // the manual exponent at M: at most 4 digits
-  bool has_e = M < len && lower(s[M]) == 'e';
-  bool e_sign = has_e && M + 1 < len && (s[M + 1] == '+' || s[M + 1] == '-');
-  bool e_neg = e_sign && s[M + 1] == '-';
-  int32_t eds = M + 1 + (e_sign ? 1 : 0);
-  int32_t ede = eds;
-  while (ede < eds + 4 && ede < len && is_digit(s[ede])) ++ede;
-  ede = min32(ede, len);
-  int32_t e_ndig = max32(ede - eds, 0);
-  int64_t e_val = 0;
-  for (int32_t p = eds; p < ede; ++p) e_val = e_val * 10 + (s[p] - '0');
-  int64_t manual_exp = has_e ? (e_neg ? -e_val : e_val) : 0;
-  bool bad_exp = has_e && e_ndig == 0;
+  // the manual exponent: at most 4 digits
+  bool bad_exp = false;
+  int64_t manual_exp = 0;
+  if (p < len && lower(s[p]) == 'e') {
+    ++p;
+    bool e_neg = false;
+    if (p < len && (s[p] == '+' || s[p] == '-')) {
+      e_neg = s[p] == '-';
+      ++p;
+    }
+    int32_t eds = p;
+    int64_t e_val = 0;
+    while (p < eds + 4 && p < len && is_digit(s[p])) {
+      e_val = e_val * 10 + (s[p] - '0');
+      ++p;
+    }
+    bad_exp = p == eds;
+    manual_exp = e_neg ? -e_val : e_val;
+  }
 
   // trailing: one f/d suffix after a nonzero value, then whitespace only
-  int32_t T0 = has_e ? ede : M;
   bool zero_digits = digits == 0;
-  bool fd = T0 < len && (lower(s[T0]) == 'f' || lower(s[T0]) == 'd') && !zero_digits;
-  int32_t T1 = T0 + (fd ? 1 : 0);
+  if (p < len && !zero_digits && (lower(s[p]) == 'f' || lower(s[p]) == 'd')) ++p;
   bool trailing_junk = false;
-  for (int32_t p = max32(T1, 0); p < len; ++p) {
+  for (; p < len; ++p) {
     if (!is_ws(s[p])) {
       trailing_junk = true;
       break;
     }
   }
-
-  FloatParse out;
-  bool number_path = !is_nan && !is_inf3;
-  bool bad = (number_path && !seen_valid_digit) || (number_path && (bad_exp || trailing_junk));
+  bool bad = nd == 0 || bad_exp || trailing_junk;
   out.valid = in_valid && len > 0 && !bad;
   out.except = in_valid && bad;
-  if (is_nan) {
-    out.valid = in_valid && nan_exact;
-    out.except = in_valid && !nan_exact;
-  }
-  if (is_inf3) {
-    out.valid = in_valid && inf_value;
-    out.except = false;
-  }
+  if (!out.valid) return out;
 
   // the value, in float64 (each operation rounded on its own)
   int32_t exp_ten = (int32_t)(exp_base + manual_exp);
   double digitsf = u64_to_f64(digits);
-  double signf = negative ? -1.0 : 1.0;
-  int32_t nd10 = 0;
-  for (int i = 0; i < 19; ++i) nd10 += digits >= SPRT_AT(kPow10U64, i) ? 1 : 0;
+  int32_t nd10 = digits10_u64(digits, T);
   int32_t shift = -307 - exp_ten;
   double value;
   if (shift > 0) {
-    double num = digitsf / bits_f64(SPRT_AT(kPow10Sub1, min32(max32(nd10 - 1 + shift, 0), 56)));
+    double num = digitsf / bits_f64(T.sub1[min32(max32(nd10 - 1 + shift, 0), 56)]);
     int32_t k = nd10 - 1;
-    double scale = (k >= 0 && k < 20) ? bits_f64(SPRT_AT(kPow10SubNeg, k)) : 0.0;
+    double scale = (k >= 0 && k < 20) ? bits_f64(T.subneg[k]) : 0.0;
     value = shift > 36 ? 0.0 : num * scale;
   } else {
     int32_t a = exp_ten < 0 ? -exp_ten : exp_ten;
-    double p = pow10_pos(a);
-    value = exp_ten < 0 ? digitsf / p : digitsf * p;
+    double pw = pow10_pos(a, T);
+    value = exp_ten < 0 ? digitsf / pw : digitsf * pw;
   }
   if (value != value) value = bits_f64(kInf);
   if (exp_ten > 308) value = bits_f64(kInf);
   if (zero_digits) value = 0.0;
-  value = signf * value;
-  if (inf_value) value = signf * bits_f64(kInf);
-  if (is_nan && nan_exact) value = bits_f64(kQuietNan);
-  out.value = out.valid ? value : 0.0;
+  out.value = signf * value;
   return out;
 }
 
+// The string tiles of the CUDA kernel: kFloatTileRows rows a tile, whose
+// chars are staged in a buffer of kFloatStageBytes. A tile stages the
+// span [offsets[r0], staged_end) of its chars: the rest of the buffer
+// takes the 16-byte alignment of the span's two ends and leaves at least
+// 16 bytes readable past every staged byte (parse_float<true>). A row whose bytes
+// end by staged_end is parsed from the buffer, any other row from the
+// chars where they lie. The host plugin stages the same spans.
+constexpr int32_t kFloatTileRows = 1024;
+constexpr int32_t kFloatStageBytes = 16384;
+constexpr int32_t kFloatStageSpan = kFloatStageBytes - 32;
+
+SPRT_HD inline int32_t staged_end(int32_t span_start, int32_t span_end) {
+  return min32(span_end, span_start + kFloatStageSpan);
+}
+
 // ---------------------------------------------------------------------------
-// DECIMAL128 arithmetic in 256-bit two's complement, four 64-bit limbs
-// least significant first (the port's utils/int256.py, the reference's
-// chunked256).
+// DECIMAL128 arithmetic: 128-bit two's complement operands, wider
+// intermediates in 256-bit two's complement, four 64-bit limbs least
+// significant first (the port's utils/int256.py, the reference's
+// chunked256). A product is taken as |a| * |b| (four 64x64 partial
+// products), and the sign applied after; digits are counted from the
+// bit length; the rescale divides by 10^k with precomputed reciprocals.
 
 struct U256 {
   uint64_t l[4];
 };
 
-// 10^(19q), q = 0..4
-SPRT_TABLE(uint64_t, kPow10Step19, 0x0000000000000001ULL, 0x0000000000000000ULL,
-           0x0000000000000000ULL, 0x0000000000000000ULL, 0x8ac7230489e80000ULL,
-           0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
-           0x098a224000000000ULL, 0x4b3b4ca85a86c47aULL, 0x0000000000000000ULL,
-           0x0000000000000000ULL, 0x4a00000000000000ULL, 0xebfdcb54864ada83ULL,
-           0x28c87cb5c89a2571ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
-           0x7775a5f171951000ULL, 0x0764b4abe8652979ULL, 0x161bcca7119915b5ULL)
+// 10^k, k = 0..77, as four limbs each (least significant first)
+SPRT_TABLE(uint64_t, kPow10x4,
+           0x0000000000000001ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x000000000000000aULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x0000000000000064ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x00000000000003e8ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x0000000000002710ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x00000000000186a0ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x00000000000f4240ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x0000000000989680ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x0000000005f5e100ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x000000003b9aca00ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x00000002540be400ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x000000174876e800ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x000000e8d4a51000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x000009184e72a000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x00005af3107a4000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x00038d7ea4c68000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x002386f26fc10000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x016345785d8a0000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x0de0b6b3a7640000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x8ac7230489e80000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x6bc75e2d63100000ULL, 0x0000000000000005ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x35c9adc5dea00000ULL, 0x0000000000000036ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x19e0c9bab2400000ULL, 0x000000000000021eULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x02c7e14af6800000ULL, 0x000000000000152dULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x1bcecceda1000000ULL, 0x000000000000d3c2ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x161401484a000000ULL, 0x0000000000084595ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0xdcc80cd2e4000000ULL, 0x000000000052b7d2ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x9fd0803ce8000000ULL, 0x00000000033b2e3cULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x3e25026110000000ULL, 0x00000000204fce5eULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x6d7217caa0000000ULL, 0x00000001431e0faeULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x4674edea40000000ULL, 0x0000000c9f2c9cd0ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0xc0914b2680000000ULL, 0x0000007e37be2022ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x85acef8100000000ULL, 0x000004ee2d6d415bULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x38c15b0a00000000ULL, 0x0000314dc6448d93ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x378d8e6400000000ULL, 0x0001ed09bead87c0ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x2b878fe800000000ULL, 0x0013426172c74d82ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0xb34b9f1000000000ULL, 0x00c097ce7bc90715ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x00f436a000000000ULL, 0x0785ee10d5da46d9ULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x098a224000000000ULL, 0x4b3b4ca85a86c47aULL, 0x0000000000000000ULL, 0x0000000000000000ULL,
+           0x5f65568000000000ULL, 0xf050fe938943acc4ULL, 0x0000000000000002ULL, 0x0000000000000000ULL,
+           0xb9f5610000000000ULL, 0x6329f1c35ca4bfabULL, 0x000000000000001dULL, 0x0000000000000000ULL,
+           0x4395ca0000000000ULL, 0xdfa371a19e6f7cb5ULL, 0x0000000000000125ULL, 0x0000000000000000ULL,
+           0xa3d9e40000000000ULL, 0xbc627050305adf14ULL, 0x0000000000000b7aULL, 0x0000000000000000ULL,
+           0x6682e80000000000ULL, 0x5bd86321e38cb6ceULL, 0x00000000000072cbULL, 0x0000000000000000ULL,
+           0x011d100000000000ULL, 0x9673df52e37f2410ULL, 0x0000000000047bf1ULL, 0x0000000000000000ULL,
+           0x0b22a00000000000ULL, 0xe086b93ce2f768a0ULL, 0x00000000002cd76fULL, 0x0000000000000000ULL,
+           0x6f5a400000000000ULL, 0xc5433c60ddaa1640ULL, 0x0000000001c06a5eULL, 0x0000000000000000ULL,
+           0x5986800000000000ULL, 0xb4a05bc8a8a4de84ULL, 0x00000000118427b3ULL, 0x0000000000000000ULL,
+           0x7f41000000000000ULL, 0x0e4395d69670b12bULL, 0x00000000af298d05ULL, 0x0000000000000000ULL,
+           0xf88a000000000000ULL, 0x8ea3da61e066ebb2ULL, 0x00000006d79f8232ULL, 0x0000000000000000ULL,
+           0xb564000000000000ULL, 0x926687d2c40534fdULL, 0x000000446c3b15f9ULL, 0x0000000000000000ULL,
+           0x15e8000000000000ULL, 0xb8014e3ba83411e9ULL, 0x000002ac3a4edbbfULL, 0x0000000000000000ULL,
+           0xdb10000000000000ULL, 0x300d0e549208b31aULL, 0x00001aba4714957dULL, 0x0000000000000000ULL,
+           0x8ea0000000000000ULL, 0xe0828f4db456ff0cULL, 0x00010b46c6cdd6e3ULL, 0x0000000000000000ULL,
+           0x9240000000000000ULL, 0xc51999090b65f67dULL, 0x000a70c3c40a64e6ULL, 0x0000000000000000ULL,
+           0xb680000000000000ULL, 0xb2fffa5a71fba0e7ULL, 0x006867a5a867f103ULL, 0x0000000000000000ULL,
+           0x2100000000000000ULL, 0xfdffc78873d4490dULL, 0x04140c78940f6a24ULL, 0x0000000000000000ULL,
+           0x4a00000000000000ULL, 0xebfdcb54864ada83ULL, 0x28c87cb5c89a2571ULL, 0x0000000000000000ULL,
+           0xe400000000000000ULL, 0x37e9f14d3eec8920ULL, 0x97d4df19d6057673ULL, 0x0000000000000001ULL,
+           0xe800000000000000ULL, 0x2f236d04753d5b48ULL, 0xee50b7025c36a080ULL, 0x000000000000000fULL,
+           0x1000000000000000ULL, 0xd762422c946590d9ULL, 0x4f2726179a224501ULL, 0x000000000000009fULL,
+           0xa000000000000000ULL, 0x69d695bdcbf7a87aULL, 0x17877cec0556b212ULL, 0x0000000000000639ULL,
+           0x4000000000000000ULL, 0x2261d969f7ac94caULL, 0xeb4ae1383562f4b8ULL, 0x0000000000003e3aULL,
+           0x8000000000000000ULL, 0x57d27e23acbdcfe6ULL, 0x30eccc3215dd8f31ULL, 0x0000000000026e4dULL,
+           0x0000000000000000ULL, 0x6e38ed64bf6a1f01ULL, 0xe93ff9f4daa797edULL, 0x0000000000184f03ULL,
+           0x0000000000000000ULL, 0x4e3945ef7a25360aULL, 0x1c7fc3908a8bef46ULL, 0x0000000000f31627ULL,
+           0x0000000000000000ULL, 0x0e3cbb5ac5741c64ULL, 0x1cfda3a5697758bfULL, 0x00000000097edd87ULL,
+           0x0000000000000000ULL, 0x8e5f518bb6891be8ULL, 0x21e864761ea97776ULL, 0x000000005ef4a747ULL,
+           0x0000000000000000ULL, 0x8fb92f75215b1710ULL, 0x5313ec9d329eaaa1ULL, 0x00000003b58e88c7ULL,
+           0x0000000000000000ULL, 0x9d3bda934d8ee6a0ULL, 0x3ec73e23fa32aa4fULL, 0x00000025179157c9ULL,
+           0x0000000000000000ULL, 0x245689c107950240ULL, 0x73c86d67c5faa71cULL, 0x00000172ebad6ddcULL,
+           0x0000000000000000ULL, 0x6b61618a4bd21680ULL, 0x85d4460dbbca8719ULL, 0x00000e7d34c64a9cULL,
+           0x0000000000000000ULL, 0x31cdcf66f634e100ULL, 0x3a4abc8955e946feULL, 0x000090e40fbeea1dULL,
+           0x0000000000000000ULL, 0xf20a1a059e10ca00ULL, 0x46eb5d5d5b1cc5edULL, 0x0005a8e89d752524ULL,
+           0x0000000000000000ULL, 0x746504382ca7e400ULL, 0xc531a5a58f1fbb4bULL, 0x003899162693736aULL,
+           0x0000000000000000ULL, 0x8bf22a31be8ee800ULL, 0xb3f07877973d50f2ULL, 0x0235fadd81c2822bULL,
+           0x0000000000000000ULL, 0x7775a5f171951000ULL, 0x0764b4abe8652979ULL, 0x161bcca7119915b5ULL,
+           0x0000000000000000ULL, 0xaa987b6e6fd2a000ULL, 0x49ef0eb713f39ebeULL, 0xdd15fe86affad912ULL)
+// division by 10^k, k = 1..19 (index k - 1), by an invariant divisor
+// (Moller and Granlund, "Improved division by invariant integers",
+// 2011, algorithm 4): the divisor shifted left until its top bit is
+// set, that shift, the reciprocal floor((2^128 - 1) / divisor) - 2^64,
+// and 5 * 10^(k - 1), half of 10^k
+SPRT_CTABLE(uint64_t, kDivNorm,
+           0xa000000000000000ULL, 0xc800000000000000ULL, 0xfa00000000000000ULL,
+           0x9c40000000000000ULL, 0xc350000000000000ULL, 0xf424000000000000ULL,
+           0x9896800000000000ULL, 0xbebc200000000000ULL, 0xee6b280000000000ULL,
+           0x9502f90000000000ULL, 0xba43b74000000000ULL, 0xe8d4a51000000000ULL,
+           0x9184e72a00000000ULL, 0xb5e620f480000000ULL, 0xe35fa931a0000000ULL,
+           0x8e1bc9bf04000000ULL, 0xb1a2bc2ec5000000ULL, 0xde0b6b3a76400000ULL,
+           0x8ac7230489e80000ULL)
+SPRT_CTABLE(int32_t, kDivShift,
+           60, 57, 54, 50, 47, 44, 40, 37, 34, 30,
+           27, 24, 20, 17, 14, 10, 7, 4, 0)
+SPRT_CTABLE(uint64_t, kDivInv,
+           0x9999999999999999ULL, 0x47ae147ae147ae14ULL, 0x0624dd2f1a9fbe76ULL,
+           0xa36e2eb1c432ca57ULL, 0x4f8b588e368f0846ULL, 0x0c6f7a0b5ed8d36bULL,
+           0xad7f29abcaf48578ULL, 0x5798ee2308c39df9ULL, 0x12e0be826d694b2eULL,
+           0xb7cdfd9d7bdbab7dULL, 0x5fd7fe17964955fdULL, 0x19799812dea11197ULL,
+           0xc25c268497681c26ULL, 0x6849b86a12b9b01eULL, 0x203af9ee756159b2ULL,
+           0xcd2b297d889bc2b6ULL, 0x70ef54646d496892ULL, 0x2725dd1d243aba0eULL,
+           0xd83c94fb6d2ac34aULL)
+SPRT_CTABLE(uint64_t, kHalfPow10,
+           5ULL, 50ULL, 500ULL,
+           5000ULL, 50000ULL, 500000ULL,
+           5000000ULL, 50000000ULL, 500000000ULL,
+           5000000000ULL, 50000000000ULL, 500000000000ULL,
+           5000000000000ULL, 50000000000000ULL, 500000000000000ULL,
+           5000000000000000ULL, 50000000000000000ULL, 500000000000000000ULL,
+           5000000000000000000ULL)
+constexpr uint64_t kDec38Lo = 0x098a224000000000ULL;  // 10^38, low limb
+constexpr uint64_t kDec38Hi = 0x4b3b4ca85a86c47aULL;  // 10^38, high limb
 
 SPRT_HD inline void mul64(uint64_t a, uint64_t b, uint64_t* lo, uint64_t* hi) {
 #ifdef __CUDA_ARCH__
@@ -372,6 +623,15 @@ SPRT_HD inline void mul64(uint64_t a, uint64_t b, uint64_t* lo, uint64_t* hi) {
   *lo = (uint64_t)p;
   *hi = (uint64_t)(p >> 64);
 #endif
+}
+
+// a + b + *carry, the carry out in *carry
+SPRT_HD inline uint64_t addc(uint64_t a, uint64_t b, uint64_t* carry) {
+  uint64_t s = a + b;
+  uint64_t c = s < a;
+  uint64_t s2 = s + *carry;
+  *carry = c + (s2 < s);
+  return s2;
 }
 
 SPRT_HD inline U256 from_i128(int64_t lo, int64_t hi) {
@@ -385,38 +645,80 @@ SPRT_HD inline bool is_neg(const U256& a) { return (int64_t)a.l[3] < 0; }
 SPRT_HD inline U256 add(const U256& a, const U256& b) {
   U256 r;
   uint64_t carry = 0;
-  for (int i = 0; i < 4; ++i) {
-    uint64_t s = a.l[i] + b.l[i];
-    uint64_t c1 = s < a.l[i];
-    uint64_t s2 = s + carry;
-    uint64_t c2 = s2 < s;
-    r.l[i] = s2;
-    carry = c1 | c2;
-  }
+  SPRT_UNROLL
+  for (int i = 0; i < 4; ++i) r.l[i] = addc(a.l[i], b.l[i], &carry);
   return r;
 }
 
 SPRT_HD inline U256 neg(const U256& a) {
-  U256 r = {{~a.l[0], ~a.l[1], ~a.l[2], ~a.l[3]}};
-  U256 one = {{1, 0, 0, 0}};
-  return add(r, one);
+  U256 r;
+  uint64_t carry = 1;
+  SPRT_UNROLL
+  for (int i = 0; i < 4; ++i) r.l[i] = addc(~a.l[i], 0, &carry);
+  return r;
 }
 
 SPRT_HD inline U256 abs256(const U256& a) { return is_neg(a) ? neg(a) : a; }
 
-SPRT_HD inline bool lt_unsigned(const U256& a, const U256& b) {
+SPRT_HD inline bool lt_unsigned(const U256& a, const uint64_t* b) {
+  SPRT_UNROLL
   for (int i = 3; i >= 0; --i) {
-    if (a.l[i] != b.l[i]) return a.l[i] < b.l[i];
+    if (a.l[i] != b[i]) return a.l[i] < b[i];
   }
   return false;
+}
+
+// |x| >= 10^38 for a magnitude x: Spark's DECIMAL128 overflow
+SPRT_HD inline bool ge_dec38(const U256& x) {
+  return (x.l[2] | x.l[3]) != 0 || x.l[1] > kDec38Hi ||
+         (x.l[1] == kDec38Hi && x.l[0] >= kDec38Lo);
+}
+
+// the magnitude of a 128-bit two's complement value; true when negative
+SPRT_HD inline bool mag128(int64_t lo, int64_t hi, uint64_t* m_lo, uint64_t* m_hi) {
+  uint64_t l = (uint64_t)lo, h = (uint64_t)hi;
+  bool n = hi < 0;
+  if (n) {
+    l = ~l + 1;
+    h = ~h + (l == 0 ? 1 : 0);
+  }
+  *m_lo = l;
+  *m_hi = h;
+  return n;
+}
+
+// a * b of two magnitudes below 2^128 (at most 2^254, so no wrap):
+// four 64x64 partial products, one when both fit in 64 bits
+SPRT_HD inline U256 mul_mag128(uint64_t a_lo, uint64_t a_hi, uint64_t b_lo, uint64_t b_hi) {
+  U256 r;
+  mul64(a_lo, b_lo, &r.l[0], &r.l[1]);
+  r.l[2] = r.l[3] = 0;
+  if ((a_hi | b_hi) == 0) return r;
+  uint64_t lo, hi, c = 0;
+  mul64(a_lo, b_hi, &lo, &hi);
+  r.l[1] = addc(r.l[1], lo, &c);
+  r.l[2] = addc(r.l[2], hi, &c);
+  r.l[3] += c;
+  c = 0;
+  mul64(a_hi, b_lo, &lo, &hi);
+  r.l[1] = addc(r.l[1], lo, &c);
+  r.l[2] = addc(r.l[2], hi, &c);
+  r.l[3] += c;
+  c = 0;
+  mul64(a_hi, b_hi, &lo, &hi);
+  r.l[2] = addc(r.l[2], lo, &c);
+  r.l[3] += hi + c;
+  return r;
 }
 
 // a * b mod 2^256
 SPRT_HD inline U256 mul(const U256& a, const U256& b) {
   uint64_t r[4] = {0, 0, 0, 0};
+  SPRT_UNROLL
   for (int i = 0; i < 4; ++i) {
     uint64_t carry = 0;
-    for (int j = 0; i + j < 4; ++j) {
+    SPRT_UNROLL
+    for (int j = 0; j < 4 - i; ++j) {
       uint64_t lo, hi;
       mul64(a.l[i], b.l[j], &lo, &hi);
       uint64_t s = r[i + j] + lo;
@@ -435,6 +737,7 @@ SPRT_HD inline U256 mul(const U256& a, const U256& b) {
 SPRT_HD inline U256 mul_u64(const U256& a, uint64_t b) {
   U256 r;
   uint64_t carry = 0;
+  SPRT_UNROLL
   for (int i = 0; i < 4; ++i) {
     uint64_t lo, hi;
     mul64(a.l[i], b, &lo, &hi);
@@ -445,75 +748,111 @@ SPRT_HD inline U256 mul_u64(const U256& a, uint64_t b) {
   return r;
 }
 
-// 10^e for e in [0, 77]: 10^(19q) * 10^r
-SPRT_HD inline U256 pow10_256(int32_t e) {
-  int32_t q = e / 19, r = e % 19;
-  U256 base = {{SPRT_AT(kPow10Step19, 4 * q), SPRT_AT(kPow10Step19, 4 * q + 1),
-                SPRT_AT(kPow10Step19, 4 * q + 2), SPRT_AT(kPow10Step19, 4 * q + 3)}};
-  return mul_u64(base, SPRT_AT(kPow10U64, r));
+// a * 10^k mod 2^256, k in [0, 77]; p10: kPow10x4 (its copy in shared
+// memory on the card, or the table itself)
+SPRT_HD inline U256 mul_pow10(const U256& a, int32_t k, const uint64_t* p10) {
+  if (k == 0) return a;
+  if (k <= 19) return mul_u64(a, p10[4 * k]);
+  U256 p = {{p10[4 * k], p10[4 * k + 1], p10[4 * k + 2], p10[4 * k + 3]}};
+  return mul(a, p);
 }
 
-// a * 10^e mod 2^256, e in [0, 77]
-SPRT_HD inline U256 scale_up(const U256& a, int32_t e) { return e == 0 ? a : mul(a, pow10_256(e)); }
-
-// |a| >= 10^38: Spark's DECIMAL128 overflow
-SPRT_HD inline bool gt_decimal38(const U256& a) {
-  return !lt_unsigned(abs256(a), pow10_256(38));
-}
-
-// decimal digits of |a| (int256.py precision10): the count of i in
-// [0, 76] with 10^i < |a|, -1 past 10^76
-SPRT_HD inline int32_t precision10(const U256& a) {
-  U256 mag = abs256(a);
-  U256 p = {{1, 0, 0, 0}};
-  int32_t i = 0;
-  while (i < 77 && lt_unsigned(p, mag)) {
-    p = mul_u64(p, 10);
-    ++i;
+// decimal digits of a magnitude (int256.py precision10): the count of i
+// in [0, 76] with 10^i < |a|, -1 past 10^76. That count is the number of
+// digits of |a| - 1: d = floor((bits - 1) * log10(2)) from the bit length
+// (((bits - 1) * 1233) >> 12, exact up to 256 bits), then one compare
+// with 10^(d + 1).
+SPRT_HD inline int32_t precision10(const U256& mag, const uint64_t* p10) {
+  if ((mag.l[0] | mag.l[1] | mag.l[2] | mag.l[3]) == 0) return 0;
+  U256 x;
+  uint64_t borrow = 1;
+  SPRT_UNROLL
+  for (int i = 0; i < 4; ++i) {
+    x.l[i] = mag.l[i] - borrow;
+    borrow = mag.l[i] < borrow ? 1 : 0;
   }
-  return i >= 77 ? -1 : i;
+  int32_t bits = x.l[3] ? 256 - clz64(x.l[3])
+                 : x.l[2] ? 192 - clz64(x.l[2])
+                 : x.l[1] ? 128 - clz64(x.l[1])
+                 : x.l[0] ? 64 - clz64(x.l[0])
+                          : 0;
+  if (bits == 0) return 0;  // |a| == 1
+  int32_t d = ((bits - 1) * 1233) >> 12;
+  int32_t digits = d + 1 + (lt_unsigned(x, p10 + 4 * (d + 1)) ? 0 : 1);
+  return digits >= 77 ? -1 : digits;
 }
 
-// unsigned floor division of a 256-bit n by a nonzero 128-bit d (below
-// 2^127): restoring division from n's highest set bit
-SPRT_HD inline void divmod_u128(const U256& n, uint64_t d_lo, uint64_t d_hi, U256* q,
-                                uint64_t* r_lo, uint64_t* r_hi) {
-  U256 qq = {{0, 0, 0, 0}};
-  uint64_t rl = 0, rh = 0;
-  int top = 255;
-  while (top >= 0 && ((n.l[top >> 6] >> (top & 63)) & 1) == 0) --top;
-  for (int bit = top; bit >= 0; --bit) {
-    uint64_t in = (n.l[bit >> 6] >> (bit & 63)) & 1;
-    rh = (rh << 1) | (rl >> 63);
-    rl = (rl << 1) | in;
-    bool ge = rh > d_hi || (rh == d_hi && rl >= d_lo);
-    if (ge) {
-      uint64_t borrow = rl < d_lo;
-      rl -= d_lo;
-      rh = rh - d_hi - borrow;
-      qq.l[bit >> 6] |= 1ull << (bit & 63);
-    }
+// (u1:u0) / d for a normalised d (top bit set), u1 < d, with v its
+// reciprocal: the quotient; the remainder in *r
+SPRT_HD inline uint64_t div_preinv(uint64_t u1, uint64_t u0, uint64_t d, uint64_t v,
+                                   uint64_t* r) {
+  uint64_t q0, q1;
+  mul64(v, u1, &q0, &q1);
+  q0 += u0;
+  q1 += u1 + (q0 < u0 ? 1 : 0) + 1;
+  uint64_t rr = u0 - q1 * d;
+  if (rr > q0) {
+    q1 -= 1;
+    rr += d;
   }
-  *q = qq;
-  *r_lo = rl;
-  *r_hi = rh;
+  if (rr >= d) {
+    q1 += 1;
+    rr -= d;
+  }
+  *r = rr;
+  return q1;
 }
 
-// n / d rounded HALF_UP away from zero, d a positive power of ten below
-// 2^127 (int256.py divide_and_round / divide_and_round_pow10)
-SPRT_HD inline U256 divide_and_round(const U256& n, const U256& d) {
-  bool n_neg = is_neg(n);
-  U256 mag = n_neg ? neg(n) : n;
+// floor(x / 10^k) of a 256-bit x, k in [1, 19]: long division on 64-bit
+// limbs of x shifted by the divisor's normalising shift; the remainder
+// in *rem
+SPRT_HD inline U256 div_pow10_small(const U256& x, int32_t k, uint64_t* rem) {
+  int32_t s = SPRT_AT(kDivShift, k - 1);
+  uint64_t d = SPRT_AT(kDivNorm, k - 1), v = SPRT_AT(kDivInv, k - 1);
   U256 q;
-  uint64_t r_lo, r_hi;
-  divmod_u128(mag, d.l[0], d.l[1], &q, &r_lo, &r_hi);
-  bool top = (int64_t)r_hi < 0;
-  uint64_t dbl_lo = r_lo << 1, dbl_hi = (r_hi << 1) | (r_lo >> 63);
-  bool inc = top || dbl_hi > d.l[1] || (dbl_hi == d.l[1] && dbl_lo >= d.l[0]);
-  if (inc) {
-    U256 one = {{1, 0, 0, 0}};
-    q = add(q, one);
+  uint64_t r = s ? x.l[3] >> (64 - s) : 0;
+  SPRT_UNROLL
+  for (int i = 3; i >= 0; --i) {
+    uint64_t u = x.l[i] << s;
+    if (s && i > 0) u |= x.l[i - 1] >> (64 - s);
+    q.l[i] = div_preinv(r, u, d, v, &r);
   }
+  *rem = r >> s;
+  return q;
+}
+
+// x / 10^k rounded HALF_UP for a magnitude x, k in [0, 38] (int256.py
+// divide_and_round_pow10): one step of the long division for k <= 19,
+// two (by 10^19, then by 10^(k - 19)) above. Twice the remainder
+// reaches 10^k exactly when the remainder reaches 5 * 10^(k - 1); past
+// 10^19 that is the second remainder reaching 5 * 10^(k - 20), the
+// first being below 10^19.
+SPRT_HD inline U256 div_round_pow10(const U256& x, int32_t k) {
+  if (k == 0) return x;
+  uint64_t r;
+  U256 q;
+  bool up;
+  if (k <= 19) {
+    q = div_pow10_small(x, k, &r);
+    up = r >= SPRT_AT(kHalfPow10, k - 1);
+  } else {
+    U256 q1 = div_pow10_small(x, 19, &r);
+    q = div_pow10_small(q1, k - 19, &r);
+    up = r >= SPRT_AT(kHalfPow10, k - 20);
+  }
+  if (up) {
+    uint64_t carry = 1;
+    SPRT_UNROLL
+    for (int i = 0; i < 4; ++i) q.l[i] = addc(q.l[i], 0, &carry);
+  }
+  return q;
+}
+
+// a signed 256-bit n / 10^k rounded HALF_UP away from zero (int256.py
+// divide_and_round)
+SPRT_HD inline U256 div_round_signed(const U256& n, int32_t k) {
+  bool n_neg = is_neg(n);
+  U256 q = div_round_pow10(n_neg ? neg(n) : n, k);
   return n_neg ? neg(q) : q;
 }
 
@@ -527,51 +866,135 @@ SPRT_HD inline DecResult dec_out(const U256& r, bool overflow) {
   return out;
 }
 
-// add / subtract with scales given at run time: JAX ops/decimal.py
-// _add_sub_scales_any; port ops/decimal.py:149 _add_sub_scales_any.
-// The caller keeps max(a_scale, b_scale) - target_scale <= 38.
-SPRT_HD inline DecResult add_sub(int64_t a_lo, int64_t a_hi, int64_t b_lo, int64_t b_hi,
-                                 int32_t a_scale, int32_t b_scale, int32_t target_scale,
-                                 bool is_sub) {
-  int32_t inter = max32(a_scale, b_scale);
-  U256 a = scale_up(from_i128(a_lo, a_hi), min32(max32(inter - a_scale, 0), 77));
-  U256 b = scale_up(from_i128(b_lo, b_hi), min32(max32(inter - b_scale, 0), 77));
-  if (is_sub) b = neg(b);
-  U256 s = add(a, b);
-  int32_t delta = inter - target_scale;
-  U256 result = s;
-  if (delta > 0) {
-    result = divide_and_round(s, pow10_256(min32(delta, 38)));
-  } else if (delta < 0) {
-    result = scale_up(s, min32(-delta, 77));
+// What a launch's scales ask of every row: the rescales it may need.
+// Add / subtract: the operands raised to the larger scale (ea, eb), then
+// the sum lowered (delta > 0, a division) or raised (delta < 0) to the
+// target. Multiply: the product rescaled by delta = a_scale + b_scale -
+// product_scale (a division when positive). A product over 38 digits
+// takes its first rounding whatever the scales (multiply_any).
+constexpr int32_t kDecDown = 1;  // a division by 10^delta
+constexpr int32_t kDecUp = 2;    // a multiplication by a power of ten
+
+struct DecPlan {
+  bool mul, is_sub;
+  int32_t regime;      // kDecDown | kDecUp bits
+  int32_t ea, eb;      // add / subtract: each operand's raise
+  int32_t delta;       // the rescale of the sum or product
+};
+
+SPRT_HD inline DecPlan dec_plan(bool mul, bool is_sub, int32_t a_scale, int32_t b_scale,
+                                int32_t out_scale) {
+  DecPlan p = {mul, is_sub, 0, 0, 0, 0};
+  if (mul) {
+    p.delta = a_scale + b_scale - out_scale;
+  } else {
+    int32_t inter = max32(a_scale, b_scale);
+    p.ea = inter - a_scale;
+    p.eb = inter - b_scale;
+    p.delta = inter - out_scale;
   }
-  return dec_out(result, gt_decimal38(result));
+  if (p.delta > 0) p.regime |= kDecDown;
+  if (p.delta < 0 || p.ea > 0 || p.eb > 0) p.regime |= kDecUp;
+  return p;
+}
+
+// add / subtract with scales given at run time: JAX ops/decimal.py
+// _add_sub_scales_any; port ops/decimal.py:150 _add_sub_scales_any. The
+// caller keeps max(a_scale, b_scale) - target_scale <= 38. R: the
+// regime bits of the launch's plan; the code for a rescale it cannot
+// need is not compiled in.
+template <int32_t R>
+SPRT_HD inline DecResult add_sub(const DecPlan& p, int64_t a_lo, int64_t a_hi, int64_t b_lo,
+                                 int64_t b_hi, const uint64_t* p10) {
+  U256 a = from_i128(a_lo, a_hi), b = from_i128(b_lo, b_hi);
+  if (R & kDecUp) {
+    a = mul_pow10(a, min32(p.ea, 77), p10);
+    b = mul_pow10(b, min32(p.eb, 77), p10);
+  }
+  if (p.is_sub) b = neg(b);
+  U256 s = add(a, b);
+  if ((R & kDecDown) && p.delta > 0) {
+    s = div_round_signed(s, min32(p.delta, 38));
+  } else if ((R & kDecUp) && p.delta < 0) {
+    s = mul_pow10(s, min32(-p.delta, 77), p10);
+  }
+  return dec_out(s, ge_dec38(abs256(s)));
+}
+
+#ifdef __CUDA_ARCH__
+#define SPRT_NOINLINE __noinline__
+#else
+#define SPRT_NOINLINE
+#endif
+
+// the multiply of any product magnitude `mag` (sign `negative`): the
+// first rounding of a product over 38 digits, then the rescale by
+// delta less that rounding's digits. Kept out of line on the card: few
+// rows take it.
+SPRT_HD inline SPRT_NOINLINE DecResult multiply_any(U256 mag, bool negative, int32_t delta,
+                                                    const uint64_t* p10) {
+  int32_t first_div = max32(precision10(mag, p10) - 38, 0);
+  if (first_div > 0) mag = div_round_pow10(mag, first_div);
+  int32_t exponent = delta - first_div;
+  bool pre_overflow = exponent < 0 && (precision10(mag, p10) - exponent) > 38;
+  if (exponent < 0) {
+    mag = mul_pow10(mag, min32(-exponent, 77), p10);
+  } else if (exponent > 0) {
+    mag = div_round_pow10(mag, min32(exponent, 38));
+  }
+  U256 r = negative ? neg(mag) : mag;
+  bool overflow = pre_overflow || ge_dec38(abs256(r));
+  if (pre_overflow) {
+    U256 zero = {{0, 0, 0, 0}};
+    r = zero;
+  }
+  return dec_out(r, overflow);
 }
 
 // multiply with Spark's SPARK-40129 double rounding: JAX ops/decimal.py
-// _multiply_scales_any; port ops/decimal.py:111 _multiply_scales_any.
-// The caller keeps a_scale + b_scale - product_scale <= 38.
-SPRT_HD inline DecResult multiply(int64_t a_lo, int64_t a_hi, int64_t b_lo, int64_t b_hi,
-                                  int32_t a_scale, int32_t b_scale, int32_t product_scale) {
-  U256 product = mul(from_i128(a_lo, a_hi), from_i128(b_lo, b_hi));
-  int32_t first_div = max32(precision10(product) - 38, 0);
-  if (first_div > 0) product = divide_and_round(product, pow10_256(first_div));
-  int32_t exponent = (a_scale + b_scale - product_scale) - first_div;
-  bool pre_overflow = exponent < 0 && (precision10(product) - exponent) > 38;
-  U256 result;
-  if (exponent < 0) {
-    result = scale_up(product, min32(-exponent, 77));
-  } else if (exponent > 0) {
-    result = divide_and_round(product, pow10_256(min32(exponent, 38)));
+// _multiply_scales_any; port ops/decimal.py:112 _multiply_scales_any.
+// The caller keeps a_scale + b_scale - product_scale <= 38. A product
+// below 10^38 has at most 38 digits, so no first rounding: it is
+// rescaled by delta alone, in the regime R of the launch's plan, in 128
+// bits (a raise that does not overflow stays below 2^127). Any other
+// product takes multiply_any.
+template <int32_t R>
+SPRT_HD inline DecResult multiply(const DecPlan& p, int64_t a_lo, int64_t a_hi, int64_t b_lo,
+                                  int64_t b_hi, const uint64_t* p10) {
+  uint64_t al, ah, bl, bh;
+  bool negative = mag128(a_lo, a_hi, &al, &ah) != mag128(b_lo, b_hi, &bl, &bh);
+  U256 mag = mul_mag128(al, ah, bl, bh);
+  if (ge_dec38(mag)) return multiply_any(mag, negative, p.delta, p10);
+  bool overflow = false;
+  if ((R & kDecDown) && p.delta > 0) {
+    mag = div_round_pow10(mag, min32(p.delta, 38));  // below 10^37: no overflow
+  } else if ((R & kDecUp) && p.delta < 0) {
+    if (precision10(mag, p10) - p.delta > 38) {
+      DecResult zero = {0, 0, true};
+      return zero;
+    }
+    mag = mul_pow10(mag, -p.delta, p10);  // at most 10^38
+    overflow = ge_dec38(mag);
+  }
+  uint64_t lo = mag.l[0], hi = mag.l[1];
+  if (negative) {
+    lo = ~lo + 1;
+    hi = ~hi + (lo == 0 ? 1 : 0);
+  }
+  DecResult out = {(int64_t)lo, (int64_t)hi, overflow};
+  return out;
+}
+
+// one row of the launch's op (MUL: multiply, else add / subtract) in
+// regime R
+template <bool MUL, int32_t R>
+SPRT_HD inline DecResult decimal_row(const DecPlan& p, int64_t a_lo, int64_t a_hi,
+                                     int64_t b_lo, int64_t b_hi, const uint64_t* p10) {
+  if constexpr (MUL) {
+    return multiply<R>(p, a_lo, a_hi, b_lo, b_hi, p10);
   } else {
-    result = product;
+    return add_sub<R>(p, a_lo, a_hi, b_lo, b_hi, p10);
   }
-  bool overflow = pre_overflow || gt_decimal38(result);
-  if (pre_overflow) {
-    U256 zero = {{0, 0, 0, 0}};
-    result = zero;
-  }
-  return dec_out(result, overflow);
 }
 
 // ---------------------------------------------------------------------------

@@ -50,6 +50,11 @@ REPLACES = {
 }
 DEC_OPS = {"add": 0, "sub": 1, "mul": 2}
 NO_ROW = 0xFFFFFFFF  # status[0] when no row failed
+# the float cast's string tiles (sprt_rowops.h kFloatTileRows,
+# kFloatStageSpan): rows a tile, and the chars of a tile staged in shared
+# memory; a row ending past them is read from global memory
+FLOAT_TILE_ROWS = 1024
+FLOAT_STAGE_SPAN = 16384 - 32
 
 
 def plugin_name(device) -> str:
