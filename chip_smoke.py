@@ -5688,6 +5688,24 @@ def float_cast_ops(offsets):
     return (offsets.numel() - 1) * c["row"] + int(offsets[-1] - offsets[0]) * c["per_byte"]
 
 
+def int_floor(bits, strip):
+    """The integer cast's instructions at the least, from this build's
+    SASS: a row's cheapest way through the row loop of the instantiation
+    for (bits, strip) (``row``; its byte loops at zero turns) and the
+    cheapest turn of a loop that reads a byte (``per_byte``)."""
+    from spark_rapids_jni_tpu_torch.kernels import _sass
+
+    store = {8: "STG.E.U8", 16: "STG.E.U16", 32: "STG.E", 64: "STG.E.64"}[bits]
+    return _sass.row_ops(_sass.find(native_sass(), f"cast_integer_kernelILi{bits}ELb{int(strip)}E"),
+                         store)
+
+
+def int_cast_ops(offsets, bits, strip):
+    """int_floor's row count over the rows of these offsets (a floor:
+    whitespace, zeros and digits read a byte at a time are not counted)."""
+    return (offsets.numel() - 1) * int_floor(bits, strip)["row"]
+
+
 SMOKE_STRINGS = ["12", " 42 ", "abc", None, "-7"]  # backend_smoke's bench column
 
 
@@ -5701,6 +5719,22 @@ def int_cast_spec(n, seed=12):
     take = rng.random(n) < 0.5
     case = np.array(INT_CASES, dtype=object)[rng.integers(0, len(INT_CASES), n)]
     return string_spec_from_list([c if t else r for c, t, r in zip(case, take, ints)], rng, 0.05)
+
+
+def ss_quantity_spec(n=SS_RG, seed=1000):
+    """One store_sales row group's ss_quantity_str column in the interop
+    form (the strings "  qq " that write_store_sales writes: 4-5 bytes,
+    no nulls)."""
+    return string_column_spec([f"  {v} " for v in ss_gen_chunk(n, seed)["qty_i"]])
+
+
+def string_bytes(col, out_bytes):
+    """The bytes a string cast of ``col`` moves: its chars, offsets and
+    validity read once, ``out_bytes`` a row and the two status words
+    written."""
+    n = col.offsets.numel() - 1
+    return (col.data.numel() + 4 * col.offsets.numel() + (0 if col.validity is None else n)
+            + n * out_bytes + 8)
 
 
 def decimal_limb_args(data, scale, valid=None):
@@ -5843,13 +5877,91 @@ def float_tile_strings(seed=63):
     return string_spec_from_list(rows, rng, 0.05), parts
 
 
+def int_tile_strings(seed=64):
+    """Strings that stress the integer cast's string tiles (``native``
+    INT_TILE_ROWS rows a tile, INT_STAGE_SPAN chars staged): every
+    INT_CASES string, 20-30 digits with and without leading zeros and a
+    dot, the store_sales form "  qq ", one string longer than a staging
+    buffer alone in a tile and five in a row in another, a tile of
+    100-byte strings (its span past the buffer), a tile of empty strings,
+    an all-null tile and a last partial tile of 77 rows. Returns the
+    interop spec and each part's first row."""
+    from spark_rapids_jni_tpu_torch.kernels import native
+
+    rng = np.random.default_rng(seed)
+    tile, span = native.INT_TILE_ROWS, native.INT_STAGE_SPAN
+    ws = ["", " ", "  ", "\t", "\n", "\r", " \t"]
+
+    def digits(n):
+        return "".join(str(d) for d in rng.integers(0, 10, n))
+
+    def pick(options):
+        return options[int(rng.integers(0, len(options)))]
+
+    def spaced(core):  # whitespace around half of the strings
+        return f"{pick(ws)}{core}{pick(ws)}" if rng.random() < 0.5 else core
+
+    def short():
+        return spaced(str(int(rng.integers(-(10**12), 10**12))))
+
+    def pad(rows):
+        while len(rows) % tile:
+            rows.append(short())
+
+    rows, parts = [], {}
+    parts["cases"] = len(rows)
+    rows += INT_CASES
+    parts["long digit runs"] = len(rows)
+    for _ in range(2 * tile):
+        m = digits(int(rng.integers(20, 31)))
+        zeros = "0" * int(rng.integers(0, 12)) if rng.random() < 0.5 else ""
+        cut = int(rng.integers(1, len(m) + 1))  # the significant digits kept before any dot
+        body = m[:cut] if rng.random() < 0.5 else f"{m[:cut]}.{m[cut:]}"
+        rows.append(spaced(f"{pick(['', '-', '+'])}{zeros}{body}"))
+    pad(rows)
+    parts["store_sales form"] = len(rows)
+    rows += [f"  {v} " for v in rng.integers(1, 100, tile)]
+    parts["one long string"] = len(rows)
+    rows += [short() for _ in range(100)] + ["0" * (span + 1000) + "12"]
+    pad(rows)
+    parts["five long strings"] = len(rows)
+    rows += [short() for _ in range(10)]
+    rows += [f"  {'0' * (span + 17 * k)}{k}.{digits(k)}  " for k in range(1, 6)]
+    pad(rows)
+    parts["100-byte strings"] = len(rows)
+    for _ in range(tile):
+        lead, trail = int(rng.integers(0, 40)), int(rng.integers(0, 40))
+        zeros = "0" * int(rng.integers(0, 12))
+        core = f"{pick(['', '-', '+'])}{zeros}{digits(int(rng.integers(1, 20)))}"
+        rows.append((" " * lead + core + pick(["", ".", "." + digits(5), "x"]) + " " * trail)
+                    .ljust(100))
+    parts["empty strings"] = len(rows)
+    rows += [""] * tile
+    parts["null tile"] = len(rows)
+    rows += [None] * tile
+    parts["last partial tile"] = len(rows)
+    rows += [short() for _ in range(77)]
+    return string_spec_from_list(rows, rng, 0.05), parts
+
+
+def staged_rows(offsets, tile, span):
+    """The rows of these offsets that a kernel's string tiles of ``tile``
+    rows parse in place: those ending more than ``span`` bytes after their
+    tile's first byte."""
+    n = len(offsets) - 1
+    starts = offsets[np.arange(n) // tile * tile]
+    return int(np.sum(offsets[1:] - starts > span))
+
+
 def native_regimes_against_plain(card):
-    """Phase 33 (c): the redesigned decimal128 and cast_float64 kernels on
-    the card, bit for bit against their plain versions on the same
-    inputs, in every regime they compute: decimal add, subtract and
-    multiply over decimal_edge_operands (10 % nulls) at every DEC_SCALES
-    triple, and the float cast over float_tile_strings. Raises on the
-    first difference; returns the rows checked per regime."""
+    """Phase 33 (c): the redesigned decimal128, cast_float64 and
+    cast_integer kernels on the card, bit for bit against their plain
+    versions on the same inputs, in every regime they compute: decimal
+    add, subtract and multiply over decimal_edge_operands (10 % nulls) at
+    every DEC_SCALES triple, the float cast over float_tile_strings, and
+    the integer cast over int_tile_strings at every width, strip and ANSI
+    flag. Raises on the first difference; returns the rows checked per
+    regime."""
     from spark_rapids_jni_tpu_torch.columnar.interop import column_from_numpy
     from spark_rapids_jni_tpu_torch.kernels import native
 
@@ -5878,15 +5990,31 @@ def native_regimes_against_plain(card):
         same_bytes(f"cast_float64 tile strings {name}", g, w)
     lens = np.diff(spec["offsets"])
     checked["cast_float64 tile strings"] = len(col)
-    checked["cast_float64 rows past the staged span"] = int(sum(
-        1 for r0 in range(0, len(col), native.FLOAT_TILE_ROWS)
-        for r in range(r0, min(r0 + native.FLOAT_TILE_ROWS, len(col)))
-        if spec["offsets"][r + 1] - spec["offsets"][r0] > native.FLOAT_STAGE_SPAN))
+    checked["cast_float64 rows past the staged span"] = staged_rows(
+        spec["offsets"], native.FLOAT_TILE_ROWS, native.FLOAT_STAGE_SPAN)
+    ispec, iparts = int_tile_strings()
+    icol = column_from_numpy(ispec, "cuda")
+    valid_rows = {}
+    for bits in (8, 16, 32, 64):
+        for strip in (False, True):
+            for ansi in (False, True):
+                label = f"cast_integer int{bits} strip {int(strip)} ansi {int(ansi)}"
+                got = native.cast_integer(icol.data, icol.offsets, icol.validity, bits, ansi, strip)
+                want = native.cast_integer_plain(icol.data, icol.offsets, icol.validity, bits,
+                                                 ansi, strip)
+                for name, g, w in zip(("values", "validity", "status"), got, want):
+                    same_bytes(f"{label} {name}", g, w)
+                checked[label] = len(icol)
+                valid_rows[label] = int(got[1].sum())
+    checked["cast_integer rows past the staged span"] = staged_rows(
+        ispec["offsets"], native.INT_TILE_ROWS, native.INT_STAGE_SPAN)
     torch.cuda.synchronize()
     print(f"native regimes (c): every row bit-exact against the plain versions on the card: "
           f"{json.dumps(checked)}; decimal rows whose product passes 10^38 (the general "
           f"multiply) {general} of {len(av)}; float tile parts at rows {json.dumps(parts)}, "
-          f"longest string {int(lens.max())} bytes; card: {card}", flush=True)
+          f"longest string {int(lens.max())} bytes; integer tile parts at rows "
+          f"{json.dumps(iparts)}, longest string {int(np.diff(ispec['offsets']).max())} bytes, "
+          f"valid rows per regime {json.dumps(valid_rows)}; card: {card}", flush=True)
     return checked
 
 
@@ -5906,10 +6034,12 @@ def native_backend_phase(card):
     (INT64, INT32, INT8) and of a wider schema at 4 Mi rows both ways;
     each result copied out and held to the port's torch op on the same
     inputs on the card, bit for bit; the live-bytes counter back to 0
-    after the releases; the backend unregistered at the end. Then each
-    family's kernel timed through its wrapper (median of 25 launches in
-    three loops) against its plain version and its byte bound. Returns
-    the kernel entries of the JSON line."""
+    after the releases; the backend unregistered at the end. (c) The
+    redesigned kernels in every regime (native_regimes_against_plain).
+    Then each family's kernel timed through its wrapper (median of 25
+    launches in three loops) against its plain version and its bound (the
+    integer cast also on one store_sales row group's quantity strings, the
+    main path's shape). Returns the kernel entries of the JSON line."""
     import ctypes
 
     import spark_rapids_jni_tpu_torch as torch_port
@@ -6135,16 +6265,20 @@ def native_backend_phase(card):
     row_tables = {"wide": wide_t, "narrow": narrow_t,
                   "rung1": table_from_numpy(lineitem_spec(N_MAIN), device="cuda"),
                   "cols212": cycled_table(torch_port, N_WIDE)}
+    sq = column_from_numpy(ss_quantity_spec(), "cuda")
     shapes = {
         "cast_integer": (
             lambda: native.cast_integer(ic.data, ic.offsets, ic.validity, 64, False, True),
             lambda: native.cast_integer_plain(ic.data, ic.offsets, ic.validity, 64, False, True),
-            ic.data.numel() + 4 * ic.offsets.numel() + N_WIDE + N_WIDE * 9 + 8, 0),
+            string_bytes(ic, 9), int_cast_ops(ic.offsets, 64, True)),
+        "cast_integer store_sales": (
+            lambda: native.cast_integer(sq.data, sq.offsets, sq.validity, 32, False, True),
+            lambda: native.cast_integer_plain(sq.data, sq.offsets, sq.validity, 32, False, True),
+            string_bytes(sq, 5), int_cast_ops(sq.offsets, 32, True)),
         "cast_float64": (
             lambda: native.cast_float64(fc.data, fc.offsets, fc.validity),
             lambda: native.cast_float64_plain(fc.data, fc.offsets, fc.validity),
-            fc.data.numel() + 4 * fc.offsets.numel() + N_WIDE * 9 + 8,
-            float_cast_ops(fc.offsets)),
+            string_bytes(fc, 9), float_cast_ops(fc.offsets)),
     }
     for op, scales in (("mul", (2, 2, 4)), ("add", (3, 2, 2))):  # q1's multiply; a division
         key = "decimal128" if op == "mul" else f"decimal128 {op} {scales}"
@@ -6196,8 +6330,11 @@ def native_backend_phase(card):
     floors = {f"decimal {op} {regime}": decimal_floor(op == "mul", k)
               for op in ("add", "mul") for k, regime in enumerate(regimes)}
     floors["cast_float64"] = float_floor()
+    for bits in (8, 16, 32, 64):
+        for strip in (False, True):
+            floors[f"cast_integer int{bits} strip {int(strip)}"] = int_floor(bits, strip)
     print(f"native kernels' integer instructions a row at the least (the cheapest way through "
-          f"the row loop in cuobjdump -sass of this build; the float cast's per byte): "
+          f"the row loop in cuobjdump -sass of this build; the string casts' per byte): "
           f"{json.dumps(floors)}; INT32 rate {int_ops_per_s():.6g}/s (SMs x "
           f"{INT32_LANES_PER_SM} lanes x the max SM clock); card: {card}", flush=True)
     entries = []
@@ -6210,8 +6347,8 @@ def native_backend_phase(card):
         if family in ("to_rows", "from_rows"):
             entry["schemas"] = {k.split()[1]: v for k, v in timed.items()
                                 if k.split()[0] == family}
-        if family == "decimal128":
-            entry["shapes"] = {k: v for k, v in timed.items() if k.startswith("decimal128 ")}
+        if family in ("decimal128", "cast_integer"):
+            entry["shapes"] = {k: v for k, v in timed.items() if k.startswith(f"{family} ")}
         entries.append(entry)
     return entries
 
@@ -6249,9 +6386,12 @@ def main() -> int:
     print(f"build: {sources} in {time.perf_counter() - t0:.2f} s; host libraries: "
           f"{_build.describe_host_libraries()}", flush=True)
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
             if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+                print(f"  {name}: {entry}: {line.strip()}")
 
     # ---- 3. kernel parity, exact
     max_err = 0

@@ -38,12 +38,13 @@ PATCHES = {
 SKIP = shutil.ignore_patterns("build", ".git", "__pycache__")
 
 
-def patched(tree: str, name: str) -> str:
-    """A copy of ``tree`` with one part taken out."""
-    dst = os.path.join(tree, "build", "float_parts", name)
+def patched(tree: str, name: str, patches=PATCHES, folder: str = "float_parts") -> str:
+    """A copy of ``tree`` under TREE/build/``folder``/ with the part
+    ``patches[name]`` names taken out."""
+    dst = os.path.join(tree, "build", folder, name)
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(tree, dst, ignore=SKIP)
-    path, old, new = PATCHES[name]
+    path, old, new = patches[name]
     with open(os.path.join(dst, path)) as fh:
         src = fh.read()
     if old not in src:

@@ -1,5 +1,5 @@
-"""The native plugin's decimal128 and cast_float64 kernels timed in
-several source trees, in turns, on one card.
+"""The native plugin's decimal128, cast_float64 and cast_integer kernels
+timed in several source trees, in turns, on one card.
 
     python3 scripts/native_ab.py TREE [TREE ...]
 
@@ -11,10 +11,13 @@ same seeded inputs: decimal128 multiply (2, 2 -> 4), q1's, and add (3,
 2, 2), a dividing regime, over 4 Mi q1 rows (``chip_smoke.py`` phase
 33's operands), and cast_float64 over the reference's toFloat strings
 at 1 Mi rows (phase 33's column) and one 16 Mi-row chunk (phase 14's
-first). Each result is first held bit for bit to the tree's plain
-version; each time is the tree's ``launch_medians`` (the median of 25
-launches in each of three loops). Prints one JSON line per run, then
-the card's line.
+first), and cast_integer over phase 11's integer strings at 1 Mi rows
+to INT64 (phase 33's column) and over one store_sales row group's
+quantity strings to INT32 (2 Mi rows of "  qq ", the main path's shape).
+Each result is first held bit for bit to the tree's plain version;
+each time is the tree's ``launch_medians`` (the median of 25 launches
+in each of three loops). Prints one JSON line per run, then the card's
+line.
 """
 
 import json
@@ -58,7 +61,19 @@ for op, sc in (("mul", (2, 2, 4)), ("add", (3, 2, 2))) if kernels == "all" else 
     timed(f"decimal128 {op} {sc}",
           lambda op=op, sc=sc: native.decimal128(op, a, b, valid, None, *sc),
           lambda op=op, sc=sc: native.decimal128_plain(op, a, b, valid, None, *sc))
-for n, seed in ((1 << 20, 21), (1 << 24, 100)):
+if kernels in ("all", "int"):
+    ints = column_from_numpy(c.int_cast_spec(c.N_WIDE), "cuda")
+    qty = column_from_numpy(c.string_column_spec(
+        [f"  {v} " for v in c.ss_gen_chunk(c.SS_RG, 1000)["qty_i"]]), "cuda")
+    for label, col, bits in (("1 Mi int64", ints, 64), ("store_sales int32", qty, 32)):
+        timed(f"cast_integer {label}",
+              lambda col=col, bits=bits: native.cast_integer(col.data, col.offsets, col.validity,
+                                                             bits, False, True),
+              lambda col=col, bits=bits: native.cast_integer_plain(col.data, col.offsets,
+                                                                   col.validity, bits, False,
+                                                                   True))
+    del ints, qty
+for n, seed in ((1 << 20, 21), (1 << 24, 100)) if kernels in ("all", "float") else ():
     spec, _ = c.float_axis_strings(n, seed)
     col = column_from_numpy(spec, "cuda")
     timed(f"cast_float64 {n}",
@@ -71,8 +86,8 @@ print("AB " + json.dumps(out), flush=True)
 
 def run(runs) -> int:
     """Each (tree, kernels, check) in turn in a fresh interpreter
-    (kernels: "all" or "float"; check: "check" holds each result to its
-    plain version first): its JSON line, then the card's line."""
+    (kernels: "all", "float" or "int"; check: "check" holds each result
+    to its plain version first): its JSON line, then the card's line."""
     for tree, kernels, check in runs:
         proc = subprocess.run([sys.executable, "-c", CHILD, kernels, check],
                               cwd=os.path.abspath(tree), capture_output=True, text=True,

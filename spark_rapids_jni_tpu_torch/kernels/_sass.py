@@ -22,6 +22,7 @@ Nothing here imports torch or runs at import.
 
 from __future__ import annotations
 
+import heapq
 import os
 import re
 import subprocess
@@ -126,20 +127,24 @@ def _blocks(instrs: List[Instr]):
 
 
 def _cheapest(spans, weights, succ, src: int, dst: int) -> int:
-    """The least summed weight of blocks src..dst along forward edges."""
-    inf = float("inf")
+    """The least summed weight of blocks from src to dst along any edges
+    (Dijkstra: every weight is at least 0, so no loop is turned on that
+    way; the compiler may place blocks of a loop's body past its back
+    edge, which a walk along forward edges alone would miss)."""
     dist = {src: weights[src]}
-    for k in range(src, dst + 1):
-        if k not in dist:
+    heap = [(weights[src], src)]
+    while heap:
+        d, k = heapq.heappop(heap)
+        if k == dst:
+            return int(d)
+        if d > dist[k]:
             continue
         for t in succ[k]:
-            if k < t <= dst:
-                d = dist[k] + weights[t]
-                if d < dist.get(t, inf):
-                    dist[t] = d
-    if dst not in dist:
-        raise ValueError("no forward way from the loop's head to its back edge")
-    return int(dist[dst])
+            nd = d + weights[t]
+            if nd < dist.get(t, float("inf")):
+                dist[t] = nd
+                heapq.heappush(heap, (nd, t))
+    raise ValueError("no way from the loop's head to its back edge")
 
 
 def row_ops(instrs: List[Instr], store: str) -> Dict[str, int]:

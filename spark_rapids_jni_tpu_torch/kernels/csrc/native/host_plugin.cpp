@@ -120,30 +120,43 @@ void sprtk_reset_launches(void) {
   for (auto& c : g_launches) c.store(0);
 }
 
+// the CUDA kernels' string tiles, tile by tile: the same span of each
+// tile's chars staged (sprt_rowops.h staged_end, into a buffer of the
+// kernel's size), the same rows parsed from it and the others from the
+// chars
 int sprtk_cast_to_integer(const uint8_t* chars, const int32_t* offsets, const uint8_t* valid,
                           int64_t n, int bits, int ansi, int strip, void* out,
                           uint8_t* out_valid, uint32_t* status, void*) {
+  if (bits != 8 && bits != 16 && bits != 32 && bits != 64) return kInvalidValue;
   status[0] = 0xffffffffu;
   status[1] = 0;
   if (n <= 0) return kOk;
-  for (int64_t i = 0; i < n; ++i) {
-    bool in_valid = valid == nullptr || valid[i] != 0;
-    int32_t len = in_valid ? offsets[i + 1] - offsets[i] : 0;
-    IntParse r = parse_integer(chars + offsets[i], len, in_valid, bits, ansi != 0, strip != 0);
-    store_le((uint8_t*)out + i * (bits / 8), bits / 8, (uint64_t)r.value);
-    out_valid[i] = r.valid ? 1 : 0;
-    if (!r.valid) {
-      ++status[1];
-      if (in_valid && status[0] == 0xffffffffu) status[0] = (uint32_t)i;
+  std::vector<uint8_t> stage(kIntStageBytes);
+  for (int64_t r0 = 0; r0 < n; r0 += kIntTileRows) {
+    int64_t r1 = std::min<int64_t>(r0 + kIntTileRows, n);
+    int32_t base = offsets[r0], end = staged_end(base, offsets[r1], kIntStageSpan);
+    if (end > base) std::memcpy(stage.data(), chars + base, (size_t)(end - base));
+    for (int64_t i = r0; i < r1; ++i) {
+      bool in_valid = valid == nullptr || valid[i] != 0;
+      int32_t o = offsets[i], len = offsets[i + 1] - o;
+      IntParse r = offsets[i + 1] <= end
+                       ? parse_integer<true>(stage.data() + (o - base), len, in_valid, bits,
+                                             ansi != 0, strip != 0)
+                       : parse_integer<false>(chars + o, len, in_valid, bits, ansi != 0,
+                                              strip != 0);
+      store_le((uint8_t*)out + i * (bits / 8), bits / 8, (uint64_t)r.value);
+      out_valid[i] = r.valid ? 1 : 0;
+      if (!r.valid) {
+        ++status[1];
+        if (in_valid && status[0] == 0xffffffffu) status[0] = (uint32_t)i;
+      }
     }
   }
   counted(SPRTK_CAST_INTEGER);
   return kOk;
 }
 
-// the CUDA kernel's tiles, tile by tile: the same span of each tile's
-// chars staged (sprt_rowops.h staged_end, into a buffer of the kernel's
-// size), the same rows parsed from it and the others from the chars
+// as sprtk_cast_to_integer, over the float cast's tiles
 int sprtk_cast_to_float64(const uint8_t* chars, const int32_t* offsets, const uint8_t* valid,
                           int64_t n, double* out, uint8_t* out_valid, uint32_t* status, void*) {
   status[0] = 0xffffffffu;
@@ -152,7 +165,7 @@ int sprtk_cast_to_float64(const uint8_t* chars, const int32_t* offsets, const ui
   std::vector<uint8_t> stage(kFloatStageBytes);
   for (int64_t r0 = 0; r0 < n; r0 += kFloatTileRows) {
     int64_t r1 = std::min<int64_t>(r0 + kFloatTileRows, n);
-    int32_t base = offsets[r0], end = staged_end(base, offsets[r1]);
+    int32_t base = offsets[r0], end = staged_end(base, offsets[r1], kFloatStageSpan);
     if (end > base) std::memcpy(stage.data(), chars + base, (size_t)(end - base));
     for (int64_t i = r0; i < r1; ++i) {
       bool in_valid = valid == nullptr || valid[i] != 0;

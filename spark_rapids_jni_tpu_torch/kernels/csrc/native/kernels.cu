@@ -30,7 +30,6 @@ using namespace sprt_rowops;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 16;  // grid-stride beyond 16 blocks per SM
 
 std::atomic<long long> g_launches[SPRTK_FAMILIES];
 std::atomic<long long> g_live{0};
@@ -38,11 +37,6 @@ std::mutex g_mu;
 int g_device = 0;
 cudaStream_t g_stream = nullptr;    // guarded by g_mu
 cudaMemPool_t g_pool = nullptr;     // guarded by g_mu
-
-int blocks_for(int64_t items) {
-  int64_t b = (items + kThreads - 1) / kThreads;
-  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
-}
 
 int counted(int family) {
   cudaError_t e = cudaGetLastError();
@@ -61,49 +55,8 @@ __device__ __forceinline__ void report(uint32_t* status, uint32_t first, uint32_
   }
 }
 
-// (a) string -> INT8/16/32/64. Replaces native/pjrt/export_ops.py:135
-// (make_cast_int: JAX _parse_integer over an [n, L] char matrix).
-// Bound: bytes. A row reads its 4-byte offset pair, its validity byte
-// and its string, and writes bits/8 + 1 bytes; the parse is a few
-// integer operations per byte. Design: one thread per row walking its
-// own bytes once (neighbouring threads read neighbouring strings, so a
-// warp's reads share cache lines); no char matrix, no padding, so the
-// bytes read are the string bytes themselves; the first ANSI error and
-// the invalid count are reduced per warp and land in two atomics.
-__global__ void cast_integer_kernel(const uint8_t* chars, const int32_t* offsets,
-                                    const uint8_t* valid, int64_t n, int bits, bool ansi,
-                                    bool strip, void* out, uint8_t* out_valid, uint32_t* status) {
-  uint32_t first = 0xffffffffu, count = 0;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    bool in_valid = valid == nullptr || valid[i] != 0;
-    int32_t o0 = offsets[i];
-    int32_t len = in_valid ? offsets[i + 1] - o0 : 0;
-    IntParse r = parse_integer(chars + o0, len, in_valid, bits, ansi, strip);
-    switch (bits) {
-      case 8:
-        ((int8_t*)out)[i] = (int8_t)r.value;
-        break;
-      case 16:
-        ((int16_t*)out)[i] = (int16_t)r.value;
-        break;
-      case 32:
-        ((int32_t*)out)[i] = (int32_t)r.value;
-        break;
-      default:
-        ((int64_t*)out)[i] = r.value;
-    }
-    out_valid[i] = r.valid ? 1 : 0;
-    if (!r.valid) {
-      ++count;
-      if (in_valid && first == 0xffffffffu) first = (uint32_t)i;
-    }
-  }
-  report(status, first, count);
-}
-
-// --- staging through shared memory: the string tiles of (b), the row
-// tiles of (d)
+// --- staging through shared memory: the string tiles of (a) and (b), the
+// row tiles of (d)
 
 // cp.async: global -> shared without passing through registers, 16
 // bytes (.cg, L2 only) of which `src_bytes` are read and the rest
@@ -143,44 +96,68 @@ __device__ __forceinline__ int32_t tile_count(int64_t n, int64_t tile, int32_t R
   return left < R ? (int32_t)left : R;
 }
 
-// --- (b) string -> FLOAT64, over string tiles staged in shared memory
+// --- (a) and (b), the string casts, over string tiles staged in shared
+// memory
 
 constexpr int32_t kFloatRowsPerThread = kFloatTileRows / kThreads;
 static_assert(kFloatTileRows % kThreads == 0, "a tile is whole rows of the block's threads");
 
-// a tile's offsets and the span of its chars that fits the buffer
-// (sprt_rowops.h staged_end), as cp.async copies: 4 bytes per offset,
-// 16-byte units of the chars from the aligned unit that holds the span's
-// first byte to the one that holds its last (the first unit's bytes
-// before the span share its 16-byte unit, so they lie in the same
-// allocation; the last unit reads only up to the span's end)
-__device__ __forceinline__ void stage_strings(const uint8_t* chars, const int32_t* offsets,
-                                              int64_t r0, int32_t nr, uint8_t* buf,
+// a tile's offsets (nr + 1 of them from row r0) as cp.async copies: of 16
+// bytes (the last one cut to the offsets left) where the source and the
+// destination are 16-byte aligned, else of 4
+__device__ __forceinline__ void stage_offsets(const int32_t* offsets, int64_t r0, int32_t nr,
                                               int32_t* offs) {
-  for (int32_t i = threadIdx.x; i <= nr; i += blockDim.x) cp_async4(offs + i, offsets + r0 + i);
-  int32_t o0 = offsets[r0], o1 = staged_end(o0, offsets[r0 + nr]);
+  const int32_t* src = offsets + r0;
+  if ((((uintptr_t)src | (uintptr_t)offs) & 15) == 0) {
+    for (int32_t u = threadIdx.x; 4 * u <= nr; u += blockDim.x) {
+      int32_t left = 4 * (nr + 1 - 4 * u);
+      cp_async16(offs + 4 * u, src + 4 * u, left < 16 ? left : 16);
+    }
+  } else {
+    for (int32_t i = threadIdx.x; i <= nr; i += blockDim.x) cp_async4(offs + i, src + i);
+  }
+}
+
+// the chars [o0, o1) as cp.async copies of the 16-byte units from the
+// aligned unit that holds the first byte to the one that holds the last
+// (the first unit's bytes before o0 share its 16-byte unit, so they lie
+// in the same allocation; the last unit reads only up to o1)
+__device__ __forceinline__ void stage_chars(const uint8_t* chars, int32_t o0, int32_t o1,
+                                            uint8_t* buf) {
   uintptr_t lo = (uintptr_t)(chars + o0) & ~(uintptr_t)15;
   uintptr_t hi = o1 > o0 ? (uintptr_t)(chars + o1) : lo;  // nothing for an empty span
   for (uintptr_t a = lo + 16 * threadIdx.x; a < hi; a += 16 * blockDim.x) {
     cp_async16(buf + (a - lo), (const void*)a, hi - a < 16 ? (int)(hi - a) : 16);
   }
+}
+
+// a tile's offsets and the span of its chars that fits a buffer of Span
+// bytes (sprt_rowops.h staged_end), as one cp.async group; the span's
+// ends are read from device memory
+template <int32_t Span>
+__device__ __forceinline__ void stage_strings(const uint8_t* chars, const int32_t* offsets,
+                                              int64_t r0, int32_t nr, uint8_t* buf,
+                                              int32_t* offs) {
+  stage_offsets(offsets, r0, nr, offs);
+  int32_t o0 = offsets[r0];
+  stage_chars(chars, o0, staged_end(o0, offsets[r0 + nr], Span), buf);
   cp_async_commit();
 }
 
-// one validity byte per row r (consecutive over a warp's lanes, r0 of
-// the warp a multiple of 4): four rows as one 32-bit store where the
-// four lie in range and the address is aligned, else a byte each. Every
-// lane of the warp calls it.
-__device__ __forceinline__ void store_valid4(uint8_t* out_valid, int64_t r, int64_t n,
-                                             uint32_t v) {
+// one validity byte per row t of a tile of nr rows (consecutive over a
+// warp's lanes, the warp's first t a multiple of 4) at `tile_valid`:
+// four rows as one 32-bit store where the four lie in the tile and
+// `words` (tile_valid is 4-byte aligned), else a byte each. Every lane of
+// the warp calls it.
+__device__ __forceinline__ void store_valid4(uint8_t* tile_valid, int32_t t, int32_t nr,
+                                             bool words, uint32_t v) {
   uint32_t w = v | (__shfl_down_sync(0xffffffffu, v, 1) << 8) |
                (__shfl_down_sync(0xffffffffu, v, 2) << 16) |
                (__shfl_down_sync(0xffffffffu, v, 3) << 24);
-  int64_t r4 = r & ~(int64_t)3;
-  if (((uintptr_t)(out_valid + r4) & 3) == 0 && r4 + 4 <= n) {
-    if ((r & 3) == 0) *(uint32_t*)(out_valid + r) = w;
-  } else if (r < n) {
-    out_valid[r] = (uint8_t)v;
+  if (words && (t | 3) < nr) {
+    if ((t & 3) == 0) *(uint32_t*)(tile_valid + t) = w;
+  } else if (t < nr) {
+    tile_valid[t] = (uint8_t)v;
   }
 }
 
@@ -205,7 +182,7 @@ __global__ void __launch_bounds__(kThreads)
     cast_float64_kernel(const uint8_t* chars, const int32_t* offsets, const uint8_t* valid,
                         int64_t n, double* out, uint8_t* out_valid, uint32_t* status) {
   __shared__ __align__(16) uint8_t stage[2][kFloatStageBytes];
-  __shared__ int32_t offs[2][kFloatTileRows + 1];
+  __shared__ __align__(16) int32_t offs[2][kFloatTileRows + 4];  // 16-byte aligned rows
   __shared__ FloatTables tab;
   for (int32_t i = threadIdx.x; i < (int32_t)(sizeof(FloatTables) / 8); i += blockDim.x) {
     ((uint64_t*)&tab)[i] = ((const uint64_t*)&kFloatTablesDev)[i];
@@ -214,13 +191,16 @@ __global__ void __launch_bounds__(kThreads)
   const int32_t R = kFloatTileRows;
   int64_t ntiles = (n + R - 1) / R;
   int64_t tile = blockIdx.x;
-  if (tile < ntiles) stage_strings(chars, offsets, tile * R, tile_count(n, tile, R), stage[0],
+  if (tile < ntiles) {
+    stage_strings<kFloatStageSpan>(chars, offsets, tile * R, tile_count(n, tile, R), stage[0],
                                    offs[0]);
+  }
   for (int32_t k = 0; tile < ntiles; tile += gridDim.x, ++k) {
     int32_t b = k & 1;
     int64_t next = tile + gridDim.x;
     if (next < ntiles) {
-      stage_strings(chars, offsets, next * R, tile_count(n, next, R), stage[b ^ 1], offs[b ^ 1]);
+      stage_strings<kFloatStageSpan>(chars, offsets, next * R, tile_count(n, next, R),
+                                     stage[b ^ 1], offs[b ^ 1]);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -228,8 +208,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     int32_t nr = tile_count(n, tile, R);
     const int32_t* o = offs[b];
-    int32_t span_end = staged_end(o[0], o[nr]);
+    int32_t span_end = staged_end(o[0], o[nr], kFloatStageSpan);
     const uint8_t* staged = stage[b] + ((uintptr_t)(chars + o[0]) & 15);
+    uint8_t* tile_valid = out_valid + tile * R;
+    bool words = ((uintptr_t)tile_valid & 3) == 0;
     for (int32_t u = 0; u < kFloatRowsPerThread; ++u) {
       int32_t t = u * kThreads + threadIdx.x;  // the row in the tile
       int64_t r = tile * R + t;
@@ -248,12 +230,159 @@ __global__ void __launch_bounds__(kThreads)
         if (!p.valid) ++count;
         if (p.except && first == 0xffffffffu) first = (uint32_t)r;
       }
-      store_valid4(out_valid, r, n, vbyte);
+      store_valid4(tile_valid, t, nr, words, vbyte);
     }
     __syncthreads();
   }
   report(status, first, count);
 }
+
+// (a) string -> INT8/16/32/64. Replaces native/pjrt/export_ops.py:135
+// (make_cast_int: JAX _parse_integer over an [n, L] char matrix).
+// Bound: bytes (the chars and offsets read once, a validity byte in,
+// bits/8 + 1 bytes written a row); at store_sales' 4-5-byte strings the
+// offsets and the outputs weigh more than the chars. Design: a
+// persistent block walks tiles of kIntTileRows rows staged in shared
+// memory by cp.async: a tile's offsets arrive one tile ahead of its
+// chars, so the span of chars to copy (16-byte units) is read from
+// shared memory and no thread waits on device memory to start a copy;
+// the next tile's chars and the offsets of the one after are in flight
+// while this tile is parsed (two char buffers, three offset arrays, one
+// barrier a tile). A warp reads whole 16-byte units of device memory and
+// not one byte a thread. Each thread parses its rows from the buffer in
+// one forward pass (sprt_rowops.h parse_integer: a digit run past eight
+// digits goes on eight bytes at a time); a row that ends past the staged
+// span is parsed in place, a byte at a time. One instantiation per
+// target width and strip flag (the host picks it per launch), so no row
+// branches on either and each stores its own type; ANSI stays an
+// argument, read only at a row's dot; whether the input has a validity
+// mask is chosen once a tile. Indices inside a tile are 32-bit; validity
+// bytes leave four to a store; the first row made invalid and the
+// invalid count are reduced per warp into two atomics. Measured on the
+// card (PERF.md): 1024-row tiles of 256 threads timed within a few
+// percent of 512-4096 rows with 256-1024 threads, and a byte-at-a-time
+// parse of the staged rows within 4 % of the eight-byte runs.
+template <int Bits>
+struct IntOf;
+template <>
+struct IntOf<8> {
+  using T = int8_t;
+};
+template <>
+struct IntOf<16> {
+  using T = int16_t;
+};
+template <>
+struct IntOf<32> {
+  using T = int32_t;
+};
+template <>
+struct IntOf<64> {
+  using T = int64_t;
+};
+
+constexpr int kIntThreads = 256;
+static_assert(kIntTileRows % kIntThreads == 0, "a tile is whole rows of the block's threads");
+// dynamic shared memory: two char buffers, then three offset arrays of
+// R + 1 offsets each, 16-byte aligned
+constexpr int32_t kIntOffsStride = kIntTileRows + 4;
+constexpr int32_t kIntSmemBytes = 2 * kIntStageBytes + 3 * 4 * kIntOffsStride;
+
+// the rows of one staged tile of the integer cast; HasValid: the input
+// has a validity mask (a uniform choice, so no row tests the pointer)
+template <int Bits, bool Strip, bool HasValid>
+__device__ __forceinline__ void int_tile_rows(const uint8_t* chars, const int32_t* o, int32_t nr,
+                                              int32_t base, int32_t span_end,
+                                              const uint8_t* staged, const uint8_t* tile_in,
+                                              typename IntOf<Bits>::T* tile_out,
+                                              uint8_t* tile_valid, bool words, bool ansi,
+                                              int64_t r0, uint32_t& first, uint32_t& count) {
+#pragma unroll 1
+  for (int32_t t = threadIdx.x; t < kIntTileRows; t += kIntThreads) {  // t: the row in the tile
+    uint32_t vbyte = 0;
+    if (t < nr) {
+      bool in_valid = !HasValid || tile_in[t] != 0;
+      int32_t o0 = o[t], o1 = o[t + 1];
+      IntParse p = o1 <= span_end ? parse_integer<true>(staged + (o0 - base), o1 - o0, in_valid,
+                                                        Bits, ansi, Strip)
+                                  : parse_integer<false>(chars + o0, o1 - o0, in_valid, Bits,
+                                                         ansi, Strip);
+      tile_out[t] = (typename IntOf<Bits>::T)p.value;
+      vbyte = p.valid ? 1 : 0;
+      if (!p.valid) {
+        ++count;
+        if (in_valid && first == 0xffffffffu) first = (uint32_t)(r0 + t);
+      }
+    }
+    store_valid4(tile_valid, t, nr, words, vbyte);
+  }
+}
+
+template <int Bits, bool Strip>
+__global__ void __launch_bounds__(kIntThreads)
+    cast_integer_kernel(const uint8_t* chars, const int32_t* offsets, const uint8_t* valid,
+                        int64_t n, bool ansi, typename IntOf<Bits>::T* out, uint8_t* out_valid,
+                        uint32_t* status) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int32_t R = kIntTileRows;
+  int32_t* offs0 = (int32_t*)(smem + 2 * kIntStageBytes);
+  uint32_t first = 0xffffffffu, count = 0;
+  int64_t ntiles = (n + R - 1) / R;
+  int64_t tile = blockIdx.x;
+  if (tile < ntiles) {  // the first tile's offsets, then its chars and the next tile's offsets
+    int32_t nr = tile_count(n, tile, R);
+    stage_offsets(offsets, tile * R, nr, offs0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    stage_chars(chars, offs0[0], staged_end(offs0[0], offs0[nr], kIntStageSpan), smem);
+    int64_t next = tile + gridDim.x;
+    if (next < ntiles) {
+      stage_offsets(offsets, next * R, tile_count(n, next, R), offs0 + kIntOffsStride);
+    }
+    cp_async_commit();
+  }
+  for (int32_t k = 0; tile < ntiles; tile += gridDim.x, ++k) {
+    cp_async_wait<0>();
+    __syncthreads();  // this tile's chars and the next one's offsets are in; tile k - 1 is done
+    int64_t next = tile + gridDim.x;
+    if (next < ntiles) {
+      const int32_t* on = offs0 + ((k + 1) % 3) * kIntOffsStride;
+      int32_t nn = tile_count(n, next, R);
+      stage_chars(chars, on[0], staged_end(on[0], on[nn], kIntStageSpan),
+                  smem + ((k + 1) & 1) * kIntStageBytes);
+      int64_t after = next + gridDim.x;
+      if (after < ntiles) {
+        stage_offsets(offsets, after * R, tile_count(n, after, R),
+                      offs0 + ((k + 2) % 3) * kIntOffsStride);
+      }
+      cp_async_commit();
+    }
+    int32_t nr = tile_count(n, tile, R);
+    const int32_t* o = offs0 + (k % 3) * kIntOffsStride;
+    int32_t base = o[0];
+    int32_t span_end = staged_end(base, o[nr], kIntStageSpan);
+    const uint8_t* staged = smem + (k & 1) * kIntStageBytes + ((uintptr_t)(chars + base) & 15);
+    int64_t r0 = tile * R;
+    uint8_t* tile_valid = out_valid + r0;
+    bool words = ((uintptr_t)tile_valid & 3) == 0;
+    if (valid != nullptr) {
+      int_tile_rows<Bits, Strip, true>(chars, o, nr, base, span_end, staged, valid + r0, out + r0,
+                                       tile_valid, words, ansi, r0, first, count);
+    } else {
+      int_tile_rows<Bits, Strip, false>(chars, o, nr, base, span_end, staged, nullptr, out + r0,
+                                        tile_valid, words, ansi, r0, first, count);
+    }
+  }
+  report(status, first, count);
+}
+
+// the instantiation of each launch: [log2(bits / 8)][strip]
+const void* const kIntKernels[4][2] = {
+    {(const void*)cast_integer_kernel<8, false>, (const void*)cast_integer_kernel<8, true>},
+    {(const void*)cast_integer_kernel<16, false>, (const void*)cast_integer_kernel<16, true>},
+    {(const void*)cast_integer_kernel<32, false>, (const void*)cast_integer_kernel<32, true>},
+    {(const void*)cast_integer_kernel<64, false>, (const void*)cast_integer_kernel<64, true>}};
 
 // (c) DECIMAL128 add / subtract / multiply at run-time scales. Replaces
 // native/pjrt/export_ops.py:176-195 (JAX _add_sub_scales_any,
@@ -475,10 +604,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // the grid of a persistent row kernel: every SM filled with as many
-// blocks as fit, never more blocks than tiles. The SM count and the
-// occupancy of each (kernel, shared bytes) are read once and kept: a
+// blocks of `threads` as fit, never more blocks than tiles. The SM count
+// and the occupancy of each (kernel, shared bytes) are read once and kept
+// (dynamic shared memory past 48 KB is allowed for the kernel first): a
 // launch inside a graph capture makes no query
-int persistent_blocks(const void* kernel, int32_t smem_bytes, int64_t ntiles, int* blocks) {
+int persistent_blocks(const void* kernel, int32_t smem_bytes, int64_t ntiles, int* blocks,
+                      int threads = kThreads) {
   static std::mutex mu;
   static std::map<std::tuple<int, const void*, int32_t>, int64_t> per_device;  // guarded by mu
   int dev = 0;
@@ -490,8 +621,11 @@ int persistent_blocks(const void* kernel, int32_t smem_bytes, int64_t ntiles, in
   if (it == per_device.end()) {
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess && smem_bytes > 48 * 1024) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    }
     if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem_bytes);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem_bytes);
     }
     if (e != cudaSuccess) return (int)e;
     it = per_device.emplace(key, (int64_t)sms * (per_sm > 0 ? per_sm : 1)).first;
@@ -579,21 +713,51 @@ void sprtk_reset_launches(void) {
   for (auto& c : g_launches) c.store(0);
 }
 
+// the status words before a cast: status[0] <- 0xffffffff (no row),
+// status[1] <- 0, as one 8-byte copy from a device constant: one stream
+// operation (each one ahead of the kernel costs the card a few
+// microseconds, PERF.md); the constant's address is read once per device
+__device__ const uint32_t kStatusInit[2] = {0xffffffffu, 0u};
+
 static int init_status(uint32_t* status, cudaStream_t s) {
-  cudaError_t e = cudaMemsetAsync(status, 0xff, 4, s);
-  if (e == cudaSuccess) e = cudaMemsetAsync(status + 1, 0, 4, s);
-  return (int)e;
+  static std::mutex mu;
+  static std::map<int, void*> src_of;  // guarded by mu
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  void* src = nullptr;
+  {
+    std::lock_guard<std::mutex> lk(mu);
+    auto it = src_of.find(dev);
+    if (it == src_of.end()) {
+      e = cudaGetSymbolAddress(&src, kStatusInit);
+      if (e != cudaSuccess) return (int)e;
+      src_of.emplace(dev, src);
+    } else {
+      src = it->second;
+    }
+  }
+  return (int)cudaMemcpyAsync(status, src, 8, cudaMemcpyDeviceToDevice, s);
 }
 
 int sprtk_cast_to_integer(const uint8_t* chars, const int32_t* offsets, const uint8_t* valid,
                           int64_t n, int bits, int ansi, int strip, void* out,
                           uint8_t* out_valid, uint32_t* status, void* stream) {
+  int w = bits == 8 ? 0 : bits == 16 ? 1 : bits == 32 ? 2 : bits == 64 ? 3 : -1;
+  if (w < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc = init_status(status, s);
   if (rc != 0 || n <= 0) return rc;
-  cast_integer_kernel<<<blocks_for(n), kThreads, 0, s>>>(chars, offsets, valid, n, bits,
-                                                         ansi != 0, strip != 0, out, out_valid,
-                                                         status);
+  const void* kernel = kIntKernels[w][strip != 0];
+  int blocks = 0;
+  rc = persistent_blocks(kernel, kIntSmemBytes, (n + kIntTileRows - 1) / kIntTileRows, &blocks,
+                         kIntThreads);
+  if (rc != 0) return rc;
+  bool a = ansi != 0;
+  void* args[] = {&chars, &offsets, &valid, &n, &a, &out, &out_valid, &status};
+  cudaError_t e =
+      cudaLaunchKernel(kernel, dim3(blocks), dim3(kIntThreads), args, kIntSmemBytes, s);
+  if (e != cudaSuccess) return (int)e;
   return counted(SPRTK_CAST_INTEGER);
 }
 
@@ -678,11 +842,17 @@ int sprtk_from_rows(const SprtkRowsDesc* desc, const uint8_t* rows, int64_t n, v
 // it loaded
 int sprtk_preload(void) {
   cudaFuncAttributes a;
-  const void* kernels[] = {(const void*)cast_integer_kernel, (const void*)cast_float64_kernel,
-                           (const void*)to_rows_kernel, (const void*)from_rows_kernel};
+  const void* kernels[] = {(const void*)cast_float64_kernel, (const void*)to_rows_kernel,
+                           (const void*)from_rows_kernel};
   for (const void* k : kernels) {
     cudaError_t e = cudaFuncGetAttributes(&a, k);
     if (e != cudaSuccess) return (int)e;
+  }
+  for (const auto& per_width : kIntKernels) {
+    for (const void* k : per_width) {
+      cudaError_t e = cudaFuncGetAttributes(&a, k);
+      if (e != cudaSuccess) return (int)e;
+    }
   }
   for (const auto& per_op : kDecimalKernels) {
     for (const void* k : per_op) {

@@ -46,9 +46,12 @@
 
 namespace sprt_rowops {
 
-constexpr int32_t NONE = 0x7fffffff;  // "no such position"
-
-SPRT_HD inline bool is_ws(int c) { return c == 32 || c == 13 || c == 9 || c == 10; }
+// 9, 10, 13 or 32: one range test and one bit of 0x800013 (bits 0, 1, 4
+// and 23 for c - 9)
+SPRT_HD inline bool is_ws(int c) {
+  uint32_t k = (uint32_t)c - 9u;
+  return k < 24u && ((0x800013u >> k) & 1u) != 0;
+}
 
 SPRT_HD inline bool is_digit(int c) { return c >= '0' && c <= '9'; }
 
@@ -66,87 +69,6 @@ SPRT_HD inline double bits_f64(uint64_t b) {
   __builtin_memcpy(&d, &b, 8);
   return d;
 #endif
-}
-
-// the parsers' shared prologue (cast_string.py _prologue): leading
-// whitespace skipped when stripping, then one optional sign
-SPRT_HD inline void prologue(const uint8_t* s, int32_t len, bool strip, int32_t* start,
-                             bool* negative) {
-  int32_t i0 = 0;
-  if (strip) {
-    while (i0 < len && is_ws(s[i0])) ++i0;
-  }
-  bool has_sign = i0 < len && (s[i0] == '+' || s[i0] == '-');
-  *negative = has_sign && s[i0] == '-';
-  *start = i0 + (has_sign ? 1 : 0);
-}
-
-// ---------------------------------------------------------------------------
-// string -> integer: JAX spark_rapids_jni_tpu/ops/cast_string.py
-// _parse_integer; port spark_rapids_jni_tpu_torch/ops/cast_string.py:90
-// _parse_integer. [ws] [+-] digits ['.' digits] [ws]; the '.' truncates
-// outside ANSI and is invalid under it; whitespace only when stripping;
-// overflow of the target width is invalid.
-
-struct IntParse {
-  int64_t value;  // two's complement, already narrowed; 0 when invalid
-  bool valid;
-};
-
-SPRT_HD inline IntParse parse_integer(const uint8_t* s, int32_t len, bool in_valid, int bits,
-                                      bool ansi, bool strip) {
-  IntParse out = {0, false};
-  int32_t start;
-  bool negative;
-  prologue(s, len, strip, &start, &negative);
-  if (!(in_valid && len > 0 && start < len)) return out;
-  int32_t W = NONE;  // the first whitespace after the payload starts
-  if (strip) {
-    for (int32_t p = start; p < len; ++p) {
-      if (is_ws(s[p])) {
-        W = p;
-        break;
-      }
-    }
-  }
-  if (W == start) return out;
-  int32_t D1 = NONE;  // the one truncation dot (outside ANSI)
-  if (!ansi) {
-    for (int32_t p = start; p < min32(W, len); ++p) {
-      if (s[p] == '.') {
-        D1 = p;
-        break;
-      }
-    }
-  }
-  for (int32_t p = start; p < len; ++p) {
-    int c = s[p];
-    bool ok = p < W ? (is_digit(c) || p == D1) : is_ws(c);
-    if (!ok) return out;
-  }
-  int32_t D = min32(min32(D1, W), len);
-  uint64_t mag = 0;  // wraps mod 2^64 like the column form's sum
-  int32_t z = NONE;  // the first significant digit
-  for (int32_t p = start; p < D; ++p) {
-    int d = s[p] - '0';
-    if (z == NONE && d != 0) z = p;
-    mag = mag * 10u + (uint64_t)d;
-  }
-  int32_t nd = z == NONE ? 0 : D - z;
-  uint64_t limit = negative ? (1ull << (bits - 1)) : (1ull << (bits - 1)) - 1;
-  if (nd > 19 || limit < mag) return out;
-  uint64_t v = negative ? (uint64_t)0 - mag : mag;
-  if (bits == 8) {
-    out.value = (int8_t)(uint8_t)v;
-  } else if (bits == 16) {
-    out.value = (int16_t)(uint16_t)v;
-  } else if (bits == 32) {
-    out.value = (int32_t)(uint32_t)v;
-  } else {
-    out.value = (int64_t)v;
-  }
-  out.valid = true;
-  return out;
 }
 
 // ---------------------------------------------------------------------------
@@ -270,12 +192,14 @@ struct FloatParse {
 
 // eight bytes from s, which need not be aligned (little-endian: s[0] is
 // the lowest byte); on the card the two aligned words that hold them are
-// read, so the caller guarantees 16 readable bytes from s
+// read, so the caller guarantees 16 readable bytes from s. The words'
+// address is s moved back, not rebuilt from an integer, so the compiler
+// keeps s's address space (shared-memory loads for a staged string).
 SPRT_HD inline uint64_t load8(const uint8_t* s) {
 #ifdef __CUDA_ARCH__
-  uintptr_t a = (uintptr_t)s;
-  const uint64_t* w = (const uint64_t*)(a & ~(uintptr_t)7);
-  uint32_t sh = 8 * (uint32_t)(a & 7);
+  uint32_t off = (uint32_t)(uintptr_t)s & 7;
+  const uint64_t* w = (const uint64_t*)(s - off);
+  uint32_t sh = 8 * off;
   uint64_t lo = w[0];
   return sh == 0 ? lo : (lo >> sh) | (w[1] << (64 - sh));
 #else
@@ -306,6 +230,17 @@ SPRT_HD inline uint64_t digits8_value(uint64_t x, int32_t k) {
          32;
 }
 
+// the count (0..8) of leading decimal digits among the eight bytes of x
+// (x's lowest byte first), of which only the first `left` belong to the
+// string: a byte is a digit when its high nibble is 3 and its low one at
+// most 9, which makes its byte of m 0
+SPRT_HD inline int32_t digits_in8(uint64_t x, int32_t left) {
+  uint64_t m = ((x & 0xF0F0F0F0F0F0F0F0ULL) ^ 0x3030303030303030ULL) |
+               (((x & 0x0F0F0F0F0F0F0F0FULL) + 0x0606060606060606ULL) & 0xF0F0F0F0F0F0F0F0ULL);
+  if (left < 8) m |= ~0ULL << (8 * left);
+  return m == 0 ? 8 : ctz64(m) >> 3;
+}
+
 // the digits of one run of the mantissa from *p on: the first 19 kept
 // positions accumulate into *digits18, the 20th is the extra digit, the
 // rest only count (*R: kept positions so far). kWide: eight bytes are read
@@ -319,14 +254,7 @@ SPRT_HD inline void digit_run(const uint8_t* s, int32_t len, int32_t* p, int32_t
   if (kWide) {
     while (q < len) {
       uint64_t x = load8(s + q);
-      // a byte is a digit when its high nibble is 3 and its low one at most
-      // 9: each byte of m is 0 exactly then; bytes past the string count as
-      // non-digits
-      uint64_t m = ((x & 0xF0F0F0F0F0F0F0F0ULL) ^ 0x3030303030303030ULL) |
-                   (((x & 0x0F0F0F0F0F0F0F0FULL) + 0x0606060606060606ULL) & 0xF0F0F0F0F0F0F0F0ULL);
-      int32_t left = len - q;
-      if (left < 8) m |= ~0ULL << (8 * left);
-      int32_t k = m == 0 ? 8 : ctz64(m) >> 3;
+      int32_t k = digits_in8(x, len - q);
       if (k == 0 || r + k > 19) break;
       v = v * T.u64[k] + digits8_value(x, k);
       r += k;
@@ -472,19 +400,134 @@ SPRT_HD inline FloatParse parse_float(const uint8_t* s, int32_t len, bool in_val
   return out;
 }
 
-// The string tiles of the CUDA kernel: kFloatTileRows rows a tile, whose
-// chars are staged in a buffer of kFloatStageBytes. A tile stages the
-// span [offsets[r0], staged_end) of its chars: the rest of the buffer
-// takes the 16-byte alignment of the span's two ends and leaves at least
-// 16 bytes readable past every staged byte (parse_float<true>). A row whose bytes
-// end by staged_end is parsed from the buffer, any other row from the
-// chars where they lie. The host plugin stages the same spans.
+// The string tiles of the CUDA cast kernels: a tile of rows whose chars
+// are staged in a shared-memory buffer. A tile stages the span
+// [offsets[r0], staged_end) of its chars: the rest of the buffer takes
+// the 16-byte alignment of the span's two ends and leaves at least 16
+// bytes readable past every staged byte (the eight-byte reads of
+// parse_float<true> and parse_integer<true>). A row whose bytes end by
+// staged_end is parsed from the buffer, any other row from the chars
+// where they lie. The host plugin stages the same spans. The float cast
+// takes kFloatTileRows rows a tile and a buffer of kFloatStageBytes, the
+// integer cast kIntTileRows and kIntStageBytes.
 constexpr int32_t kFloatTileRows = 1024;
 constexpr int32_t kFloatStageBytes = 16384;
 constexpr int32_t kFloatStageSpan = kFloatStageBytes - 32;
+constexpr int32_t kIntTileRows = 1024;
+constexpr int32_t kIntStageBytes = 16384;
+constexpr int32_t kIntStageSpan = kIntStageBytes - 32;
 
-SPRT_HD inline int32_t staged_end(int32_t span_start, int32_t span_end) {
-  return min32(span_end, span_start + kFloatStageSpan);
+SPRT_HD inline int32_t staged_end(int32_t span_start, int32_t span_end, int32_t span) {
+  return min32(span_end, span_start + span);
+}
+
+// ---------------------------------------------------------------------------
+// string -> integer: JAX spark_rapids_jni_tpu/ops/cast_string.py
+// _parse_integer; port spark_rapids_jni_tpu_torch/ops/cast_string.py:91
+// _parse_integer. [ws] [+-] digits ['.' digits] [ws]; the '.' truncates
+// outside ANSI and is invalid under it; whitespace only when stripping;
+// leading zeros are not significant, more than 19 significant digits or
+// a value past the target width are invalid.
+
+struct IntParse {
+  int64_t value;  // two's complement, in the target's range; 0 when invalid
+  bool valid;
+};
+
+// 10^k for k in [0, 8], from the bits of k (no table)
+SPRT_HD inline uint64_t pow10_upto8(int32_t k) {
+  uint64_t p = (k & 1) ? 10u : 1u;
+  p *= (k & 2) ? 100u : 1u;
+  p *= (k & 4) ? 10000u : 1u;
+  return (k & 8) ? 100000000u : p;
+}
+
+// One forward pass over the bytes, each read once, with one byte in hand
+// (c: 0 past the end, which no rule takes): whitespace (when stripping),
+// the sign, the zeros before the first significant digit, the
+// significant digits, the dot and its digits (checked, not accumulated),
+// the trailing whitespace. It returns on the first byte that makes the
+// row invalid. The first eight significant digits accumulate a byte at a
+// time in 32 bits (store_sales' quantities have one or two); the rest of
+// a longer run goes on eight bytes at a time when kWide (load8: on the
+// card two aligned words, so 16 bytes must be readable from every byte
+// of the string: the staged copy of a tile has that slack; the chars in
+// place do not, and go on a byte at a time). With 19 significant digits
+// at most the magnitude stays below 10^19 < 2^64: no wrap.
+template <bool kWide>
+SPRT_HD inline IntParse parse_integer(const uint8_t* s, int32_t len, bool in_valid, int bits,
+                                      bool ansi, bool strip) {
+  IntParse out = {0, false};
+  if (!in_valid || len <= 0) return out;
+  int32_t p = 0;
+  uint32_t c = s[0];
+  if (strip) {
+    while (is_ws(c)) c = ++p < len ? s[p] : 0;
+  }
+  bool negative = c == '-';
+  if (negative || c == '+') c = ++p < len ? s[p] : 0;
+  int32_t start = p;
+  if (start >= len) return out;  // only whitespace and a sign
+  while (c == '0') c = ++p < len ? s[p] : 0;
+  uint32_t head = 0;  // the first eight significant digits
+  int32_t nd = 0;     // significant digits
+  for (uint32_t d = c - '0'; d <= 9 && nd < 8; d = c - '0') {
+    head = head * 10u + d;
+    ++nd;
+    c = ++p < len ? s[p] : 0;
+  }
+  uint64_t mag = head;
+  if (c - '0' <= 9) {  // a ninth significant digit: the rest of the run
+    if (kWide) {
+      while (p < len) {
+        uint64_t x = load8(s + p);
+        int32_t k = digits_in8(x, len - p);
+        if (k == 0) break;
+        nd += k;
+        if (nd > 19) return out;
+        mag = mag * pow10_upto8(k) + digits8_value(x, k);
+        p += k;
+        if (k < 8) break;
+      }
+    } else {
+      for (; p < len; ++p) {
+        uint32_t d = (uint32_t)s[p] - '0';
+        if (d > 9) break;
+        if (++nd > 19) return out;
+        mag = mag * 10u + d;
+      }
+    }
+    c = p < len ? s[p] : 0;
+  }
+  if (c == '.') {
+    if (ansi) return out;
+    ++p;
+    if (kWide) {
+      while (p < len) {
+        int32_t k = digits_in8(load8(s + p), len - p);
+        p += k;
+        if (k < 8) break;
+      }
+    } else {
+      while (p < len && is_digit(s[p])) ++p;
+    }
+    c = p < len ? s[p] : 0;
+  }
+  if (p < len) {
+    // the rest must be whitespace, after a payload: a row whose first
+    // byte past the sign is neither a digit nor the dot is invalid
+    if (!strip || p == start) return out;
+    while (is_ws(c)) {
+      if (++p == len) break;
+      c = s[p];
+    }
+    if (p < len) return out;
+  }
+  uint64_t limit = negative ? (1ull << (bits - 1)) : (1ull << (bits - 1)) - 1;
+  if (mag > limit) return out;
+  out.value = (int64_t)(negative ? (uint64_t)0 - mag : mag);
+  out.valid = true;
+  return out;
 }
 
 // ---------------------------------------------------------------------------

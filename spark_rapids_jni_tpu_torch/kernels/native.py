@@ -50,11 +50,14 @@ REPLACES = {
 }
 DEC_OPS = {"add": 0, "sub": 1, "mul": 2}
 NO_ROW = 0xFFFFFFFF  # status[0] when no row failed
-# the float cast's string tiles (sprt_rowops.h kFloatTileRows,
-# kFloatStageSpan): rows a tile, and the chars of a tile staged in shared
-# memory; a row ending past them is read from global memory
+# the string casts' tiles (sprt_rowops.h kFloatTileRows, kFloatStageSpan,
+# kIntTileRows, kIntStageSpan): rows a tile, and the chars of a tile
+# staged in shared memory; a row ending past them is read from global
+# memory
 FLOAT_TILE_ROWS = 1024
 FLOAT_STAGE_SPAN = 16384 - 32
+INT_TILE_ROWS = 1024
+INT_STAGE_SPAN = 16384 - 32
 
 
 def plugin_name(device) -> str:
@@ -201,7 +204,7 @@ def cast_integer(chars, offsets, valid, bits: int, ansi: bool, strip: bool):
     with torch.cuda.device(chars.device):
         _run(plugin(), "sprtk_cast_to_integer", _ptr(chars), _ptr(offsets), _ptr(valid), n,
              bits, int(ansi), int(strip), _ptr(out), _ptr(ok), _ptr(status), _stream(chars))
-    return out, ok, status.to(torch.int64) & 0xFFFFFFFF
+    return out, ok, status.view(torch.uint32).to(torch.int64)
 
 
 # ---- (b) string -> FLOAT64
@@ -236,7 +239,7 @@ def cast_float64(chars, offsets, valid):
     with torch.cuda.device(chars.device):
         _run(plugin(), "sprtk_cast_to_float64", _ptr(chars), _ptr(offsets), _ptr(valid), n,
              _ptr(out), _ptr(ok), _ptr(status), _stream(chars))
-    return out, ok, status.to(torch.int64) & 0xFFFFFFFF
+    return out, ok, status.view(torch.uint32).to(torch.int64)
 
 
 # ---- (c) DECIMAL128 add / subtract / multiply
